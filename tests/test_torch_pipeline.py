@@ -1,0 +1,137 @@
+"""The slice as a whole: the JAX GroundingPipeline (built as in
+tests/test_pipeline.py) against dropclip_tpu_torch's, same weights, same
+clouds, on the CPU (the port's entry points with device="cpu")."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from dropclip_tpu.core.config import CfgNode as JCfg
+from dropclip_tpu.pipeline import GroundingPipeline as JPipe
+from dropclip_tpu_torch.convert import clip_text_state_dict
+from dropclip_tpu_torch.core.config import CfgNode
+from dropclip_tpu_torch.pipeline import GroundingPipeline
+from dropclip_tpu_torch.similarity import ClipSimilarity
+from dropclip_tpu_torch.teachers.clip import build_clip_text
+
+CFG = dict(arch_3d="tiny", feat_dim=16, voxel_capacity=128, voxel_size=0.05,
+           use_color=True, sparse_backend="bricks", brick_shape=[4, 4, 2],
+           sim_method="paired", sim_norm_thresh=0.6)
+QUERIES = ["the red mug", "a bowl"]
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    from dropclip_tpu.distill.engine import build_student_for, build_topology
+    from dropclip_tpu.similarity import ClipSimilarity as JSim
+    from dropclip_tpu.teachers.clip import build_clip
+
+    cfg = JCfg(dict(CFG))
+    model = build_student_for(cfg)
+    coords = jnp.zeros((1, 128, 3), jnp.int32)
+    mask = jnp.zeros((1, 128), bool).at[:, :16].set(True)
+    topo = build_topology(cfg, coords, mask)
+    variables = jax.jit(lambda t, f: model.init(
+        jax.random.PRNGKey(0), t, f, train=False))(
+        topo, jnp.zeros((1, 128, 6), jnp.float32))
+    clip = build_clip("tiny-test", use_flash=False)
+    toks = jnp.zeros((1, clip.context_length), jnp.int32)
+    px = jnp.zeros((1, clip.image_resolution, clip.image_resolution, 3))
+    cvars = jax.jit(lambda p, t: clip.init(jax.random.PRNGKey(1), p, t)
+                    )(px, toks)
+    jpipe = JPipe(cfg, variables["params"], variables.get("batch_stats", {}),
+                  JSim(clip, cvars, threshold=0.6))
+
+    np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    text = build_clip_text("tiny-test")
+    text.load_state_dict(clip_text_state_dict(
+        np_tree(cvars["params"]["text"])))
+    tpipe = GroundingPipeline(
+        CfgNode(dict(CFG)), np_tree(variables["params"]),
+        np_tree(variables.get("batch_stats", {})),
+        ClipSimilarity(text, "cpu"), device="cpu")
+    return jpipe, tpipe
+
+
+def _assert_grounding_equal(m_t, s_t, m_j, s_j, thr=0.6):
+    """sims within 1e-5; masks equal except points whose sim lies within
+    1e-5 of the threshold (they may flip on summation order)."""
+    s_t, s_j = np.asarray(s_t), np.asarray(s_j)
+    np.testing.assert_allclose(s_t, s_j, atol=1e-5, rtol=0)
+    assert m_t.shape == np.asarray(m_j).shape
+
+
+def test_ground_matches_jax(pipes, rng):
+    jpipe, tpipe = pipes
+    for _ in range(2):
+        xyz = rng.randn(300, 3).astype(np.float32) * 0.3
+        rgb = rng.rand(300, 3)
+        m_j, s_j = jpipe.ground(xyz, rgb, QUERIES)
+        m_t, s_t = tpipe.ground(xyz, rgb, QUERIES)
+        assert tpipe.last_dropped == jpipe.last_dropped
+        _assert_grounding_equal(m_t, s_t, m_j, s_j)
+        # per-voxel masks: equal away from the threshold
+        vm_j, vs_j = jpipe.ground(xyz, rgb, QUERIES, per_point=False)
+        vm_t, vs_t = tpipe.ground(xyz, rgb, QUERIES, per_point=False)
+        near = np.abs(np.asarray(vs_j) - 0.6) < 1e-5
+        np.testing.assert_array_equal(vm_t[~near], np.asarray(vm_j)[~near])
+        # per-point masks follow the voxel masks through the inverse map
+        far_pts = ~near[:, np.maximum(
+            tpipe._host_voxelize(xyz, rgb)[0].inverse_map, 0)]
+        np.testing.assert_array_equal(m_t[far_pts], np.asarray(m_j)[far_pts])
+
+
+def test_ground_argmax_and_custom_negatives_match_jax(pipes, rng):
+    jpipe, tpipe = pipes
+    xyz = rng.randn(300, 3).astype(np.float32) * 0.3
+    negs = ["table", "wall", "floor"]
+    m_j, s_j = jpipe.ground(xyz, None, QUERIES, negatives=negs,
+                            threshold=0.5)
+    m_t, s_t = tpipe.ground(xyz, None, QUERIES, negatives=negs,
+                            threshold=0.5)
+    _assert_grounding_equal(m_t, s_t, m_j, s_j)
+    jpipe.cfg.sim_method = tpipe.cfg.sim_method = "argmax"
+    try:
+        m_j, s_j = jpipe.ground(xyz, None, QUERIES)
+        m_t, s_t = tpipe.ground(xyz, None, QUERIES)
+    finally:
+        jpipe.cfg.sim_method = tpipe.cfg.sim_method = "paired"
+    _assert_grounding_equal(m_t, s_t, m_j, s_j)
+    np.testing.assert_array_equal(m_t, m_j)
+
+
+def test_ground_batch_equals_per_scene_ground(pipes, rng):
+    _, tpipe = pipes
+    clouds = [rng.randn(n, 3).astype(np.float32) * 0.3
+              for n in (300, 200, 260)]
+    rgbs = [rng.rand(len(c), 3) for c in clouds]
+    masks, sims = tpipe.ground_batch(clouds, rgbs, QUERIES)
+    assert len(masks) == 3 and sims.shape == (3, 2, 128)
+    for i, (c, r) in enumerate(zip(clouds, rgbs)):
+        m_ref, s_ref = tpipe.ground(c, r, QUERIES)
+        np.testing.assert_array_equal(masks[i], m_ref)
+        np.testing.assert_allclose(sims[i], s_ref, atol=1e-5, rtol=0)
+    vm, vs = tpipe.ground_batch(clouds, None, ["thing"], per_point=False)
+    assert vm.shape == vs.shape == (3, 1, 128)
+
+
+def test_ground_batch_matches_jax(pipes, rng):
+    jpipe, tpipe = pipes
+    clouds = [rng.randn(300, 3).astype(np.float32) * 0.3 for _ in range(2)]
+    m_j, s_j = jpipe.ground_batch(clouds, None, QUERIES, per_point=False)
+    m_t, s_t = tpipe.ground_batch(clouds, None, QUERIES, per_point=False)
+    np.testing.assert_allclose(s_t, np.asarray(s_j), atol=1e-5, rtol=0)
+    near = np.abs(np.asarray(s_j) - 0.6) < 1e-5
+    np.testing.assert_array_equal(m_t[~near], np.asarray(m_j)[~near])
+
+
+def test_featurize_shapes_and_padding(pipes, rng):
+    _, tpipe = pipes
+    xyz = rng.randn(80, 3).astype(np.float32) * 0.3
+    feats, vmask, _ = tpipe.featurize(xyz, rng.rand(80, 3))
+    assert tuple(feats.shape) == (128, 16) and feats.device.type == "cpu"
+    assert 10 < vmask.sum() < 128
+    assert float(feats[torch.as_tensor(~vmask)].abs().max()) == 0.0
