@@ -3,24 +3,37 @@
 
     python3 chip_smoke.py
 
-1. records the card (nvidia-smi name and power limit) and builds the
-   kernels from this checkout: K1 (``csrc/brick_conv3.cu`` with nvcc into
-   ``build/kernels/``) and K6 (Triton, compiled at its first launch);
+1. records the card (nvidia-smi name and power limit) and builds every
+   kernel from this checkout side by side: the CUDA sources with nvcc into
+   ``build/kernels/`` (K1 ``csrc/brick_conv3.cu``; K3, K4 and K5
+   ``csrc/attention.cu``) and the Triton kernels K6 and K7 by a first
+   launch;
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes the serve path gives it (K1: the 16 k3 convs of MinkUNet14D at
-   batch 8 in float32 with TF32 off and in bf16; K6: the text tower's
-   (Q*77, 768) rows in bf16 and float32), and times kernel, plain version,
-   a library yardstick the port never calls, and the card's bound;
-3. serves full-width requests (configs/DistilBlender.yaml: MinkUNet14D,
-   768-d out, 8192 voxels, (4, 4, 2) bricks; ViT-L/14@336px text tower in
-   bf16; weights drawn from a seed) through ``GroundingPipeline.ground``
-   and ``ground_batch`` and checks from the launch counters that K1 ran 16
-   times per student forward and K6 25 times per text encode;
-4. compares one request on the card with the same request on the CPU
-   (plain versions, same weights);
-5. profiles one ``ground`` request and one ``ground_batch`` (device busy
-   share of the wall time, top kernels by device time);
-6. prints the ``kernels`` JSON line, the card line and, last,
+   shapes its paths give it (K1: the 16 k3 convs of MinkUNet14D at batch 8
+   in float32 with TF32 off and in bf16; K6: the text tower's (Q*77, 768)
+   rows and the ViT-L teacher's (96*769, 1024) and (96, 1024) rows; K3 and
+   K4: the teacher's (96, 769, 16, 64) bf16; K5: the hi-res patch
+   extract's (8, 3073, 16, 64) bf16, with DINO v1 hi-res, causal T=77 and
+   the float32 instance as extra rows; K7: the teacher's (96*769, 1024)
+   bf16 rows), and times kernel, plain version, a library yardstick the
+   port never calls, and the card's bound; the attention limit is checked
+   against a planted fault (the last key dropped);
+3. serve path: full-width requests (configs/DistilBlender.yaml:
+   MinkUNet14D, 768-d out, 8192 voxels, (4, 4, 2) bricks; ViT-L/14@336px
+   text tower in bf16; weights drawn from a seed) through
+   ``GroundingPipeline.ground`` and ``ground_batch``, checking from the
+   launch counters that K1 ran 16 times per student forward and K6 25
+   times per text encode; one request on the card against the CPU; a
+   profile of one ``ground`` and one ``ground_batch``;
+4. ingest path: ``tools.preprocess_data.process_scene`` at bench.py's
+   fusion shape (73 views at 480x640, 10 objects, ViT-L/14@336px teacher
+   in bf16 at full width and depth, voxel 0.005, cloud capacity 131072),
+   one warm scene and one timed, checking that K3 ran 24 times, K7 47 and
+   K6 3 per 96-crop chunk (plus 25 for the text queries); one chunk
+   forward with ``DROPCLIP_PACKED_ATTN=0`` (K4) and the teacher at a
+   doubled input (K5); three reduced scenes on the card against the CPU,
+   with planted faults that the limits must see; a profile of one scene;
+5. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero. Without a CUDA card the
@@ -34,6 +47,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -49,6 +63,9 @@ QUERY_SETS = [["the red mug", "a green bowl"], ["a blue bottle", "the box"],
               ["a yellow can", "the white plate"], ["a spoon", "the fork"],
               ["a black mug", "the red bowl"]]
 BATCH_QUERIES = ["the green bottle", "a white box"]
+# full-width ingest scene (bench.py's fusion shape): views at 480x640
+INGEST_VIEWS = 73
+INGEST_CAPACITY = 131072
 
 
 def check(cond, msg):
@@ -82,26 +99,40 @@ def cuda_ms(fn, reps, warmup=2):
 
 
 def build_kernels():
-    """Compile K1 (nvcc) and K6 (Triton, by a first launch) side by
-    side; returns (K1 build seconds, K6 build seconds, ptxas report)."""
-    from dropclip_tpu_torch.kernels import brick_conv3 as k1
-    from dropclip_tpu_torch.ops.layernorm import layer_norm
+    """Compile every kernel side by side: the CUDA sources (one nvcc each,
+    started together) and the Triton kernels K6 and K7 (by a first
+    launch). Returns ({name: build seconds}, {source: ptxas report})."""
+    from dropclip_tpu_torch.kernels import attention, brick_conv3  # noqa
+    from dropclip_tpu_torch.kernels.nvcc import LIBRARIES
+    from dropclip_tpu_torch.ops.layernorm import add_layer_norm, layer_norm
 
-    def nvcc():
+    def nvcc(lib):
         t = time.time()
-        k1.build()
+        lib.build()
         return time.time() - t
 
-    with ThreadPoolExecutor(1) as pool:
-        fut = pool.submit(nvcc)
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        futs = {name: pool.submit(nvcc, lib)
+                for name, lib in LIBRARIES.items()}
         t = time.time()
         x = torch.randn(4, 768, device="cuda", dtype=torch.bfloat16)
-        layer_norm(x, torch.ones(768, device="cuda"),
-                   torch.zeros(768, device="cuda"))
+        s, b = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+        layer_norm(x, s, b)
         torch.cuda.synchronize()
-        t_k6 = time.time() - t
-        t_k1 = fut.result()
-    return t_k1, t_k6, k1.build_log
+        times = {"K6 (triton)": time.time() - t}
+        t = time.time()
+        add_layer_norm(x, x, s, b)
+        torch.cuda.synchronize()
+        times["K7 (triton)"] = time.time() - t
+        for name, fut in futs.items():
+            times[f"{name}.cu (nvcc)"] = fut.result()
+    layer_norm.launches = add_layer_norm.launches = 0
+    return times, {name: lib.build_log for name, lib in LIBRARIES.items()}
+
+
+def bf16_ulps(err, ref_max):
+    """An error in bf16 ulps at the magnitude ``ref_max``."""
+    return err / 2.0 ** (np.floor(np.log2(max(ref_max, 1e-30))) - 7)
 
 
 def make_clouds(n_scenes):
@@ -229,51 +260,68 @@ def k1_phase(pipe, clouds, rgbs, report):
 
 
 def k6_phase(report):
-    """K6 against its plain version at the text tower's LayerNorm rows."""
+    """K6 against its plain version at every shape its paths give it: the
+    text tower's (Q*77, 768) rows (serve and ingest queries) and the ViT-L
+    teacher's (96*769, 1024) rows (ln_pre, block 0's ln_1) and (96, 1024)
+    class tokens (ln_post). bf16: within one bf16 ulp of the plain result;
+    at the teacher's 75M values the ulp is floored at 2^-10, as for K7,
+    where float32 reduction order can flip a value that cancels below
+    2^-13. float32: rtol 1e-5, atol 1e-5."""
     import torch.nn.functional as F
 
     from dropclip_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cases = [(4 * 77, 768, torch.bfloat16, 1e-30),
+             (4 * 77, 768, torch.float32, None),
+             (77, 768, torch.bfloat16, 1e-30), (77, 768, torch.float32, None),
+             (96 * 769, 1024, torch.bfloat16, 2.0 ** -10),
+             (96, 1024, torch.bfloat16, 1e-30)]
     rows, main = [], None
-    for q in (4, 1):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = (torch.randn((q * 77, 768), generator=gen, device="cuda") * 3
-                 ).to(dtype)
-            s = 1 + 0.1 * torch.randn(768, generator=gen, device="cuda")
-            b = 0.1 * torch.randn(768, generator=gen, device="cuda")
-            got = layer_norm(x, s, b).float()
-            ref = layer_norm_plain(x, s, b).float()
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            if dtype == torch.bfloat16:
-                ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(
-                    1e-30))) - 7)
-                ok = bool(((got - ref).abs() <= ulp).all())
-            else:
-                ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
-            check(ok, f"K6 {dtype} ({q * 77}, 768): max err {err}")
-            es = x.element_size()
-            nbytes = 2 * x.numel() * es + 2 * 768 * 4
-            flops = 9.0 * x.numel()
-            bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
-            row = dict(rows=q * 77, dtype=str(dtype), max_abs_err=err,
-                       ms=cuda_ms(lambda: layer_norm(x, s, b), 200),
-                       plain_ms=cuda_ms(lambda: layer_norm_plain(x, s, b),
-                                        200),
-                       library_ms=cuda_ms(lambda: F.layer_norm(
-                           x, (768,), s.to(dtype), b.to(dtype), 1e-5), 200),
-                       bound_ms=bound, bound_by="bytes")
-            rows.append(row)
-            print(f"K6 ({q * 77}, 768) {dtype}: err {err:.3e} | kernel "
-                  f"{row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-                  f"F.layer_norm {row['library_ms']:.5f} ms bound "
-                  f"{bound:.6f} ms", flush=True)
-            if q == 4 and dtype == torch.bfloat16:
-                main = row
+    for n, c, dtype, floor in cases:
+        x = (torch.randn((n, c), generator=gen, device="cuda") * 3
+             ).to(dtype)
+        s = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        got = layer_norm(x, s, b).float()
+        ref = layer_norm_plain(x, s, b).float()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if dtype == torch.bfloat16:
+            ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(
+                floor))) - 7)
+            ok = bool(((got - ref).abs() <= ulp).all())
+        else:
+            ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+        check(ok, f"K6 {dtype} ({n}, {c}): max err {err}")
+        del got, ref
+        es = x.element_size()
+        nbytes = 2 * x.numel() * es + 2 * c * 4
+        flops = 9.0 * x.numel()
+        bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
+        reps = 20 if n > 10000 else 200
+        row = dict(rows=n, c=c, dtype=str(dtype), max_abs_err=err,
+                   ms=cuda_ms(lambda: layer_norm(x, s, b), reps),
+                   plain_ms=cuda_ms(lambda: layer_norm_plain(x, s, b), reps),
+                   library_ms=cuda_ms(lambda: F.layer_norm(
+                       x, (c,), s.to(dtype), b.to(dtype), 1e-5), reps),
+                   bound_ms=bound, bound_by="bytes")
+        rows.append(row)
+        print(f"K6 ({n}, {c}) {dtype}: err {err:.3e} | kernel "
+              f"{row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+              f"F.layer_norm {row['library_ms']:.5f} ms bound "
+              f"{bound:.6f} ms", flush=True)
+        if n == 4 * 77 and dtype == torch.bfloat16:
+            main = row
+        del x
     report["k6_shapes"] = rows
-    return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                 "library_ms", "bound_ms", "bound_by")}
+    layer_norm.launches = 0
+    out = {k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")}
+    # the largest error over every bf16 shape of the serve and ingest paths
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows
+                             if r["dtype"] == str(torch.bfloat16))
+    return out
 
 
 def serve_phase(pipe, clouds, rgbs, report):
@@ -422,6 +470,501 @@ def profile_phase(pipe, clouds, rgbs, report):
                 ROOT, "chiprun_out", "trace_ground.json"))
 
 
+ATTN_ULPS = 1  # bf16 limit, in ulps of max|ref|
+
+
+def dropped_key_control(q, k, v, causal):
+    """A planted fault for the limits: masked softmax attention (the plain
+    K5 order) with the last key left out, as an off-by-one in the key mask
+    would do. Rows are (B, T, H, D)."""
+    t, d = q.shape[1], q.shape[-1]
+    qf, kf, vf = (x.permute(0, 2, 1, 3).float()
+                  for x in (q, k[:, :-1], v[:, :-1]))
+    s = qf @ kf.transpose(-1, -2) * d ** -0.5
+    if causal:
+        keep = torch.ones(t, t - 1, dtype=torch.bool, device=q.device).tril()
+        s.masked_fill_(~keep, torch.finfo(torch.float32).min)
+    p = torch.softmax(s, dim=-1).to(q.dtype).float()
+    return (p @ vf).to(q.dtype).permute(0, 2, 1, 3)
+
+
+def attention_phase(report):
+    """K3, K4 and K5 against their plain versions at the shapes the ingest
+    path gives them: K3 and K4 at the ViT-L teacher's (96, 769, 16, 64),
+    K5 at the hi-res patch extract's (8, 3073, 16, 64), all bf16; extra
+    rows: K5 at DINO v1 hi-res (T=3026, 6 heads) and causal at T=77, and
+    the float32 instance at (8, 769, 16, 64). Each bf16 case runs on three
+    seeds and must stay within ATTN_ULPS bf16 ulp of max|ref|: the two
+    float32 results may round to neighbouring bf16 values, because online
+    softmax rounds the unnormalised probabilities against a running
+    maximum. The same case with the last key left out (``dropped_key_
+    control``) must lie above that limit, so that the limit sees an
+    off-by-one in the key mask. float32: rtol 1e-4, atol 1e-5 * max|ref|.
+    ``F.scaled_dot_product_attention`` is timed as the library yardstick
+    only."""
+    import torch.nn.functional as F
+
+    from dropclip_tpu_torch.ops import attention as att
+
+    cases = [("K3", 96, 769, 16, False, torch.bfloat16),
+             ("K4", 96, 769, 16, False, torch.bfloat16),
+             ("K5", 8, 3073, 16, False, torch.bfloat16),
+             ("K5 DINO", 1, 3026, 6, False, torch.bfloat16),
+             ("K5 causal", 32, 77, 12, True, torch.bfloat16),
+             ("K3 f32", 8, 769, 16, False, torch.float32)]
+    out = {}
+    for tag, b, t, h, causal, dtype in cases:
+        errs = []
+        for seed in range(3 if dtype == torch.bfloat16 else 1):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + seed)
+            q, k, v = (torch.randn((b, t, h, 64), generator=gen,
+                                   device="cuda").to(dtype) for _ in range(3))
+            if tag.startswith("K3"):
+                args = [x.reshape(b, t, h * 64) for x in (q, k, v)]
+                kern = lambda: att.oneshot_attention_packed(*args, h)
+                plain = lambda: att.oneshot_attention_packed_plain(*args, h)
+            elif tag == "K4":
+                kern = lambda: att.oneshot_attention(q, k, v)
+                plain = lambda: att.oneshot_attention_plain(q, k, v)
+            else:
+                kern = lambda: att.flash_attention_padded(q, k, v, causal)
+                plain = lambda: att.flash_attention_plain(q, k, v, causal)
+            got, ref = kern().float(), plain().float()
+            torch.cuda.synchronize()
+            ref_max = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            check(bool(torch.isfinite(got).all()), f"{tag}: not finite")
+            if dtype == torch.float32:
+                ok = torch.allclose(got, ref.reshape(got.shape), rtol=1e-4,
+                                    atol=1e-5 * ref_max)
+                check(ok, f"{tag} (B={b}, T={t}, H={h}): max err {err} vs "
+                      f"max|ref| {ref_max}")
+            errs.append(dict(seed=SEED + 2 + seed, max_abs_err=err,
+                             ref_max=ref_max,
+                             ulps=bf16_ulps(err, ref_max)))
+            if seed == 0 and dtype == torch.bfloat16:
+                ctrl = dropped_key_control(q, k, v, causal).float()
+                ctrl_ulps = bf16_ulps(float((ctrl - ref.reshape(
+                    ctrl.shape)).abs().max()), ref_max)
+                del ctrl
+            del got, ref
+        worst = max(e["ulps"] for e in errs)
+        if dtype == torch.bfloat16:
+            print(f"{tag}: max err over seeds {[e['ulps'] for e in errs]} "
+                  f"bf16 ulps; control (last key dropped) {ctrl_ulps:.2f} "
+                  f"ulps", flush=True)
+            check(worst <= ATTN_ULPS < ctrl_ulps,
+                  f"{tag} (B={b}, T={t}, H={h}): {worst} bf16 ulps (limit "
+                  f"{ATTN_ULPS}, control {ctrl_ulps})")
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        library = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                          is_causal=causal)
+        # work the data needs: causal keeps t(t+1)/2 of the t^2 pairs
+        pairs = t * (t + 1) / 2 if causal else t * t
+        flops = 4.0 * b * h * pairs * 64
+        nbytes = 4.0 * b * t * h * 64 * q.element_size()
+        peak = PEAK_FLOPS[dtype]
+        row = dict(b=b, t=t, h=h, d=64, causal=causal, dtype=str(dtype),
+                   max_abs_err=max(e["max_abs_err"] for e in errs),
+                   max_err_bf16_ulps=worst, seeds=errs,
+                   ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3),
+                   library_ms=cuda_ms(library, 10),
+                   bound_ms=max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+                   bound_by="operations" if flops / peak > nbytes / PEAK_BYTES
+                   else "bytes", gflop=flops / 1e9)
+        if dtype == torch.bfloat16:
+            row["control_bf16_ulps"] = ctrl_ulps
+        row["tflops"] = flops / row["ms"] / 1e9
+        out[tag] = row
+        print(f"{tag} (B={b}, T={t}, H={h}, D=64{', causal' if causal else ''}"
+              f", {dtype}): err {row['max_abs_err']:.3e} ({worst:.2f} bf16 "
+              f"ulps) | kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
+              f"TFLOP/s) plain {row['plain_ms']:.4f} ms sdpa "
+              f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    report["attention"] = out
+    att.oneshot_attention_packed.launches = 0
+    att.oneshot_attention.launches = 0
+    att.flash_attention_padded.launches = 0
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    return {tag: {k: out[tag][k] for k in keys} for tag in ("K3", "K4", "K5")}
+
+
+def k7_phase(report):
+    """K7 against its plain version at the teacher's (96*769, 1024) bf16
+    rows: the sum bit-equal, y within one bf16 ulp (floored at 2^-10,
+    where float32 reduction order can flip a cancelled value). The library
+    yardstick is an add plus ``F.layer_norm``."""
+    import torch.nn.functional as F
+
+    from dropclip_tpu_torch.ops.layernorm import (add_layer_norm,
+                                                  add_layer_norm_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows, c = 96 * 769, 1024
+    r = (torch.randn((rows, c), generator=gen, device="cuda") * 3).bfloat16()
+    d = torch.randn((rows, c), generator=gen, device="cuda").bfloat16()
+    s = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    got_s, got_y = add_layer_norm(r, d, s, b)
+    ref_s, ref_y = add_layer_norm_plain(r, d, s, b)
+    torch.cuda.synchronize()
+    ref = ref_y.float()
+    err = float((got_y.float() - ref).abs().max())
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -10)))
+                  - 7)
+    check(torch.equal(got_s, ref_s)
+          and bool(((got_y.float() - ref).abs() <= ulp).all()),
+          f"K7 ({rows}, {c}) bf16: max err {err}")
+    sb, bb = s.bfloat16(), b.bfloat16()
+
+    def library():
+        x = r + d
+        return x, F.layer_norm(x, (c,), sb, bb, 1e-5)
+
+    nbytes = 4.0 * rows * c * 2 + 2 * c * 4
+    flops = 10.0 * rows * c
+    row = dict(rows=rows, c=c, max_abs_err=err,
+               ms=cuda_ms(lambda: add_layer_norm(r, d, s, b), 20),
+               plain_ms=cuda_ms(lambda: add_layer_norm_plain(r, d, s, b), 5),
+               library_ms=cuda_ms(library, 20),
+               bound_ms=max(flops / PEAK_FLOPS[torch.bfloat16],
+                            nbytes / PEAK_BYTES) * 1e3, bound_by="bytes")
+    row["gb_per_s"] = nbytes / row["ms"] / 1e6
+    report["k7"] = row
+    print(f"K7 ({rows}, {c}) bf16: err {err:.3e} | kernel {row['ms']:.4f} ms "
+          f"({row['gb_per_s']:.0f} GB/s) plain {row['plain_ms']:.4f} ms "
+          f"add+F.layer_norm {row['library_ms']:.4f} ms bound "
+          f"{row['bound_ms']:.4f} ms", flush=True)
+    add_layer_norm.launches = 0
+    return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                "library_ms", "bound_ms", "bound_by")}
+
+
+class NpzWriter:
+    """``process_scene``'s ``write``: the scene dict as .npz under
+    chiprun_out/ (the card's machine has no h5py); keeps the last one."""
+
+    def __init__(self):
+        self.last = None
+
+    def __call__(self, out_path, objects_info, **arrays):
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+        np.savez(out_path, **arrays)
+        self.last = arrays
+
+
+def present_pairs(segs, max_objects=32):
+    """Present (view, object) pairs as the extractor counts them."""
+    ids = np.arange(max_objects)
+    return int(sum(np.isin(ids, np.setdiff1d(np.unique(s), [0])).sum()
+                   for s in segs))
+
+
+def make_ingest_scene(seed, n_views, hw, n_objects, n_points):
+    """make_raw_scene at bench.py's fusion shape; MV-TOD intrinsics scaled
+    to ``hw`` (reference data/blender.py:180-187 at 480x640)."""
+    from dropclip_tpu_torch.data.synthetic import make_raw_scene
+
+    raw = make_raw_scene(np.random.default_rng(seed), n_objects=n_objects,
+                         n_points_per_obj=n_points, n_views=n_views, hw=hw)
+    f = 444.44 * hw[1] / 640
+    raw["K"] = np.array([[f, 0, hw[1] / 2 - 0.5], [0, f, hw[0] / 2 - 0.5],
+                         [0, 0, 1]], np.float32)
+    return raw
+
+
+def ingest_scene(extractor, raw, tag, writer, capacity=INGEST_CAPACITY,
+                 sync=True):
+    from dropclip_tpu_torch.tools.preprocess_data import process_scene
+
+    return process_scene(
+        images=raw["images"], depths=raw["depths"], segs=raw["segs"],
+        poses=raw["poses"], K=raw["K"], obj_info=raw["objects_info"],
+        extractor=extractor,
+        out_path=os.path.join(ROOT, "chiprun_out", "ingest", f"{tag}.npz"),
+        voxel_size=0.005, cloud_capacity=capacity, max_objects=32,
+        sync_timings=sync, write=writer)
+
+
+def check_scene(stats, scene, what):
+    feats = scene["obj_feats"]
+    check(stats["points"] > 0, f"{what}: no point survived compaction")
+    check(np.isfinite(feats).all() and (np.linalg.norm(feats, axis=-1)
+                                        > 0).all(),
+          f"{what}: fused rows not finite and non-zero after the NaN "
+          "replacement")
+    check(np.isfinite(scene["xyz"]).all() and scene["xyz"].shape[0]
+          == stats["points"], f"{what}: compacted cloud malformed")
+
+
+def ingest_phase(extractor, report):
+    """Full-width ingest (bench.py's fusion shape): one warm scene, then
+    one timed scene with the launch counters set to 0 before it. Returns
+    the scenes' launch counts."""
+    from dropclip_tpu_torch.ops import attention as att
+    from dropclip_tpu_torch.ops.layernorm import add_layer_norm, layer_norm
+
+    writer = NpzWriter()
+    scenes = [make_ingest_scene(s, INGEST_VIEWS, (480, 640), 10, 400)
+              for s in (1, 2)]
+    t = time.time()
+    warm = ingest_scene(extractor, scenes[0], "warm", writer)
+    print(f"warm ingest scene: {time.time() - t:.2f} s {warm}", flush=True)
+    counters = (att.oneshot_attention_packed, att.oneshot_attention,
+                att.flash_attention_padded, layer_norm, add_layer_norm)
+    for c in counters:
+        c.launches = 0
+    chunks0 = extractor.chunks
+    torch.cuda.synchronize()
+    t = time.time()
+    stats = ingest_scene(extractor, scenes[1], "scene", writer)
+    wall = time.time() - t
+    n = {name: c.launches for name, c in zip(("K3", "K4", "K5", "K6", "K7"),
+                                             counters)}
+    chunks = extractor.chunks - chunks0
+    pairs = present_pairs(scenes[1]["segs"])
+    check_scene(stats, writer.last, "full-width ingest")
+    print(f"ingest scene ({INGEST_VIEWS} views 480x640, 10 objects, "
+          f"ViT-L/14@336px bf16): {wall:.3f} s wall; aggregate "
+          f"{stats['t_aggregate']:.3f} s, teacher {stats['t_teacher']:.3f} s,"
+          f" queries+fuse {stats['t_fuse']:.3f} s, finalize "
+          f"{stats['t_finalize']:.3f} s; {pairs} present pairs in {chunks} "
+          f"chunks; launches {n}; dropped {stats['dropped']}, points "
+          f"{stats['points']}, objects {stats['objects']}, nan_objects "
+          f"{stats['nan_objects']}", flush=True)
+    check(chunks == -(-pairs // extractor.chunk), "chunk count")
+    check(n["K3"] == 24 * chunks and n["K7"] == 47 * chunks
+          and n["K6"] == 3 * chunks + 25 and n["K4"] == n["K5"] == 0,
+          f"launches {n} over {chunks} chunks (want K3 24, K7 47, K6 3 "
+          "per chunk + 25 for the text queries)")
+    report["ingest"] = dict(views=INGEST_VIEWS, wall_s=wall, stats=stats,
+                            pairs=pairs, chunks=chunks, launches=n)
+    return n, scenes[1]
+
+
+def ingest_fallback_phase(extractor, report):
+    """The teacher's other attention routes on the ingest path, counters
+    set to 0 before each: the per-head kernel (DROPCLIP_PACKED_ATTN=0, K4)
+    over one 96-crop chunk forward of ``encode_image``, which must give
+    the packed route's (K3) bits; the long-sequence kernel (K5) on CLIP at
+    a doubled input (672x896, 3073 tokens, past ``supports``) through
+    ``ClipExtractor.extract``."""
+    from dropclip_tpu_torch.ops import attention as att
+    from dropclip_tpu_torch.teachers.extractor import ClipExtractor
+
+    model = extractor.model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    px = torch.randn((extractor.chunk,) + extractor.img_resize + (3,),
+                     generator=gen, device="cuda")
+    with torch.no_grad():
+        packed = model.encode_image(px)
+        os.environ["DROPCLIP_PACKED_ATTN"] = "0"
+        try:
+            att.oneshot_attention.launches = 0
+            att.oneshot_attention_packed.launches = 0
+            torch.cuda.synchronize()
+            t = time.time()
+            per_head = model.encode_image(px)
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            k4 = att.oneshot_attention.launches
+            k3 = att.oneshot_attention_packed.launches
+        finally:
+            del os.environ["DROPCLIP_PACKED_ATTN"]
+    check(k4 == 24 and k3 == 0, f"K4 ran {k4} times and K3 {k3} in one "
+          "chunk forward (want 24 and 0)")
+    check(torch.equal(per_head, packed), "the K4 and K3 routes differ")
+    print(f"chunk forward ({extractor.chunk} crops), DROPCLIP_PACKED_ATTN=0:"
+          f" {wall:.3f} s, K4 {k4} launches, equal to the K3 route",
+          flush=True)
+
+    hires = ClipExtractor(model, mode="patch", img_resize=(672, 896),
+                          batch_size=8)
+    images = make_ingest_scene(1, 8, (480, 640), 10, 400)["images"]
+    att.flash_attention_padded.launches = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    feats = hires.extract(images)
+    torch.cuda.synchronize()
+    wall_hr = time.time() - t
+    k5 = att.flash_attention_padded.launches
+    check(tuple(feats.shape) == (8, 48, 64, 768)
+          and bool(torch.isfinite(feats.float()).all()),
+          f"hi-res patch features {tuple(feats.shape)}")
+    check(k5 == 23, f"K5 ran {k5} times (want 23: the patch path runs all "
+          "blocks but the last through attention)")
+    print(f"hi-res patch extract (8 views at 672x896, T=3073): {wall_hr:.3f}"
+          f" s, K5 {k5} launches", flush=True)
+    report["ingest_fallbacks"] = dict(per_head_chunk_s=wall, k4_launches=k4,
+                                      hires_wall_s=wall_hr, k5_launches=k5)
+    return k4, k5
+
+
+# ingest card vs CPU limits; the readings of sound runs and of planted
+# faults that set them are in PERF.md (Findings, PR 2)
+INGEST_COS = 0.9995  # fused object rows, min cosine
+INGEST_XYZ = 1e-6  # xyz and rgb, max |d|
+
+
+def compare_scenes(g, c):
+    """Card scene ``g`` against CPU scene ``c``, matched by voxel."""
+    key = lambda xyz: [tuple(r) for r in np.floor(xyz / 0.005).astype(int)]
+    gi = {k: i for i, k in enumerate(key(g["xyz"]))}
+    pairs = [(gi[k], j) for j, k in enumerate(key(c["xyz"])) if k in gi]
+    gsel = np.array([p[0] for p in pairs], int)
+    csel = np.array([p[1] for p in pairs], int)
+    fg, fc = g["obj_feats"], c["obj_feats"]
+    return dict(
+        matched=len(pairs) / max(len(gi), len(c["xyz"]), 1),
+        xyz=float(np.abs(g["xyz"][gsel] - c["xyz"][csel]).max()),
+        rgb=float(np.abs(g["rgb"][gsel] - c["rgb"][csel]).max()),
+        labels_equal=bool((g["label"][gsel] == c["label"][csel]).all()),
+        vis_agreement=float((g["vis_mask"][:, gsel]
+                             == c["vis_mask"][:, csel]).mean()),
+        obj_feats_min_cos=float((np.sum(fg * fc, -1) / (
+            np.linalg.norm(fg, axis=-1) * np.linalg.norm(fc, axis=-1))).min()))
+
+
+def ingest_cpu_phase(report):
+    """Three reduced scenes (seeds 3-5; 4 views 120x160, 3 objects,
+    ViT-L/14@336px cut to 2 vision layers at full width, the same seeded
+    weights) on the card and on the CPU (plain versions). Matched by voxel:
+    xyz and rgb within INGEST_XYZ (float atomics sum in another order),
+    labels equal, vis_mask agreeing on 99.9% of entries, at least 99.9% of
+    each cloud's voxels matched, fused object rows at cosine >=
+    INGEST_COS (bf16 towers in two matmul libraries). Two planted faults
+    in K3 on the card, against the CPU scene of seed 3: the softmax scale
+    without log2(e), which the cosine limit must catch, and the last key
+    dropped, which is recorded only (it moves a class token by about one
+    part in 769, below bf16 noise end to end; the attention phase's ulp
+    limit catches it)."""
+    from dropclip_tpu_torch.ops import attention as att
+    from dropclip_tpu_torch.teachers.clip import build_clip
+    from dropclip_tpu_torch.teachers.extractor import ClipExtractor
+
+    from dropclip_tpu_torch.kernels.attention import attention
+
+    entry = att.oneshot_attention_packed
+
+    def no_log2e(q, k, v, heads):
+        return attention(q * (1.0 / att.LOG2E), k, v, heads)
+
+    def dropped_key(q, k, v, heads):
+        b, t, c = q.shape
+        split = [x.reshape(b, t, heads, c // heads) for x in (q, k, v)]
+        return dropped_key_control(*split, False).reshape(b, t, c)
+
+    raws = {s: make_ingest_scene(s, 4, (120, 160), 3, 400) for s in (3, 4, 5)}
+    scenes, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_clip("ViT-L/14@336px", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(SEED),
+                           device=dev, vision_layers=2)
+        ex = ClipExtractor(model, chunk=16)
+        runs = [(s, None) for s in raws]
+        if dev == "cuda":
+            runs += [(3, "no_log2e"), (3, "dropped_key")]
+        for seed, fault in runs:
+            writer = NpzWriter()
+            tag = f"reduced_{dev}_{seed}" + (f"_{fault}" if fault else "")
+            if fault:
+                att.oneshot_attention_packed = {
+                    "no_log2e": no_log2e, "dropped_key": dropped_key}[fault]
+            t = time.time()
+            try:
+                stats = ingest_scene(ex, raws[seed], tag, writer,
+                                     capacity=16384, sync=True)
+            finally:
+                att.oneshot_attention_packed = entry
+            secs[tag] = time.time() - t
+            scenes[(dev, seed, fault)] = (stats, writer.last)
+        del model, ex
+    rows = {}
+    for seed in raws:
+        (sg, g), (sc, c) = scenes[("cuda", seed, None)], \
+            scenes[("cpu", seed, None)]
+        check_scene(sg, g, f"reduced ingest {seed} on the card")
+        check_scene(sc, c, f"reduced ingest {seed} on the CPU")
+        r = compare_scenes(g, c)
+        r.update(points=[sg["points"], sc["points"]],
+                 nan_objects=[sg["nan_objects"], sc["nan_objects"]],
+                 cpu_s=secs[f"reduced_cpu_{seed}"],
+                 card_s=secs[f"reduced_cuda_{seed}"])
+        rows[seed] = r
+        print(f"ingest card vs CPU, seed {seed} (4 views 120x160, 3 objects,"
+              f" 2-layer ViT-L bf16): points {r['points']}, matched "
+              f"{r['matched']:.4f}, xyz max |d| {r['xyz']:.3e}, rgb max |d| "
+              f"{r['rgb']:.3e}, labels equal {r['labels_equal']}, vis_mask "
+              f"agreement {r['vis_agreement']:.5f}, obj_feats min cosine "
+              f"{r['obj_feats_min_cos']:.6f}, nan_objects "
+              f"{r['nan_objects']}; CPU {r['cpu_s']:.1f} s, card "
+              f"{r['card_s']:.1f} s", flush=True)
+    cpu3 = scenes[("cpu", 3, None)][1]
+    faults = {f: compare_scenes(scenes[("cuda", 3, f)][1], cpu3)[
+        "obj_feats_min_cos"] for f in ("no_log2e", "dropped_key")}
+    print(f"planted faults in K3, seed 3, obj_feats min cosine vs the CPU: "
+          f"{faults}", flush=True)
+    report["ingest_card_vs_cpu"] = dict(seeds=rows, planted_faults=faults,
+                                        cos_limit=INGEST_COS,
+                                        xyz_limit=INGEST_XYZ)
+    for seed, r in rows.items():
+        check(r["matched"] >= 0.999 and r["xyz"] <= INGEST_XYZ
+              and r["rgb"] <= INGEST_XYZ and r["labels_equal"]
+              and r["vis_agreement"] >= 0.999
+              and r["obj_feats_min_cos"] >= INGEST_COS
+              and r["nan_objects"][0] == r["nan_objects"][1],
+              f"ingest card vs CPU, seed {seed}, outside its tolerances")
+    check(faults["no_log2e"] < INGEST_COS, "the cosine limit does not see "
+          "a softmax scale without log2(e)")
+
+
+def ingest_profile_phase(extractor, scene, report):
+    """One full-width ingest scene under torch.profiler: device busy and
+    idle share, top kernels; the trace goes to chiprun_out/."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        ingest_scene(extractor, scene, "profiled", NpzWriter(), sync=False)
+        torch.cuda.synchronize()
+        wall = (time.time() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(busy > 0, "profiler saw no device time in ingest")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    mine = {}
+    for tag, key in (("K3/K4/K5", "attention_kernel"), ("K6", "_ln_rows"),
+                     ("K7", "_add_ln_rows")):
+        ev = [e for e in kernels if key in e.key and
+              not (tag == "K6" and "_add_ln_rows" in e.key)]
+        mine[tag] = dict(launches=sum(e.count for e in ev),
+                         device_ms=sum(e.self_device_time_total
+                                       for e in ev) / 1e3)
+    report.setdefault("profile", {})["ingest"] = dict(
+        wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+        top=[dict(kernel=e.key, calls=e.count,
+                  ms=e.self_device_time_total / 1e3) for e in top],
+        **mine)
+    print(f"profile ingest: wall {wall} ms, device busy {busy} ms, idle "
+          f"share {1 - busy / wall}", flush=True)
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d} "
+              f"calls  {e.key[:90]}", flush=True)
+    for tag, m in mine.items():
+        print(f"  {tag}: {m['launches']} launches, {m['device_ms']} ms on "
+              f"the device", flush=True)
+    prof.export_chrome_trace(os.path.join(ROOT, "chiprun_out",
+                                          "trace_ingest.json"))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script measures the "
@@ -432,6 +975,7 @@ def main():
     from dropclip_tpu_torch.distill.engine import brick_shape_of
     from dropclip_tpu_torch.pipeline import GroundingPipeline, make_clip_sim
     from dropclip_tpu_torch.sparse.bricks import autotune_brick_capacities
+    from dropclip_tpu_torch.tools.preprocess_data import build_extractor
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -441,12 +985,13 @@ def main():
 
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda} triton {triton.__version__}", flush=True)
-    t_k1, t_k6, ptxas = build_kernels()
-    print(f"built K1 (nvcc, sm_90a) in {t_k1:.2f} s, K6 (triton) in "
-          f"{t_k6:.2f} s", flush=True)
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    times, ptxas = build_kernels()
+    print("built " + ", ".join(f"{k} in {v:.2f} s" for k, v in
+                               times.items()), flush=True)
+    for name, log in ptxas.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     cfg = load_cfg(os.path.join(ROOT, "configs", "DistilBlender.yaml"))
     cfg.clip_checkpoint = "random"
@@ -471,17 +1016,53 @@ def main():
     cpu_phase(cfg, pipe, clouds, rgbs, report)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     profile_phase(pipe, clouds, rgbs, report)
+    del pipe
+    torch.cuda.empty_cache()
+
+    att = attention_phase(report)
+    k7 = k7_phase(report)
+    args = SimpleNamespace(clip_model="ViT-L/14@336px", clip_checkpoint=None,
+                           visual_prompt="crop-mask", crop_num_levels=1,
+                           crop_expansion_ratio=0.15, batch_size=32)
+    t = time.time()
+    extractor = build_extractor(args, device="cuda", seed=SEED)
+    print(f"built the ViT-L/14@336px teacher (bf16, seed {SEED}) in "
+          f"{time.time() - t:.1f} s", flush=True)
+    n_ing, scene = ingest_phase(extractor, report)
+    k4_n, k5_n = ingest_fallback_phase(extractor, report)
+    ingest_profile_phase(extractor, scene, report)
+    del extractor
+    torch.cuda.empty_cache()
+    ingest_cpu_phase(report)
 
     kernels = [
         dict(name="K1 brick_conv3", route="cuda",
              source="dropclip_tpu_torch/csrc/brick_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_conv.py:125",
              launches=k1_n, **k1),
+        dict(name="K3 oneshot_attention_packed", route="cuda",
+             source="dropclip_tpu_torch/csrc/attention.cu",
+             replaces="dropclip_tpu/ops/attention.py:180",
+             launches=n_ing["K3"], **att["K3"]),
+        dict(name="K4 oneshot_attention", route="cuda",
+             source="dropclip_tpu_torch/csrc/attention.cu",
+             replaces="dropclip_tpu/ops/attention.py:93",
+             launches=k4_n, **att["K4"]),
+        dict(name="K5 flash_attention_padded", route="cuda",
+             source="dropclip_tpu_torch/csrc/attention.cu",
+             replaces="dropclip_tpu/ops/attention.py:214",
+             launches=k5_n, **att["K5"]),
         dict(name="K6 layer_norm", route="triton",
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:153",
-             launches=k6_n, **k6),
+             launches=k6_n + n_ing["K6"], **k6),
+        dict(name="K7 add_layer_norm", route="triton",
+             source="dropclip_tpu_torch/ops/layernorm.py",
+             replaces="dropclip_tpu/ops/layernorm.py:125",
+             launches=n_ing["K7"], **k7),
     ]
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel of the main paths never launched")
     report["kernels"] = kernels
     report["seconds"] = time.time() - t0
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json"),

@@ -12,6 +12,10 @@ yields the same tree); nothing here imports jax.
   ``nn.Dense`` kernels are (in, out) and transpose to ``Linear.weight``,
   ``block_i`` becomes ``blocks.i``, the embedding table, positional
   embedding and text projection carry over as they are.
+- Whole CLIP (``CLIP``): ``visual`` maps like the text tower, and the
+  (p, p, 3, width) HWIO patch-conv kernel becomes the (width, p*p*3)
+  weight of the linear layer over (kh, kw, c)-ordered patches;
+  ``logit_scale`` carries over.
 """
 
 from __future__ import annotations
@@ -51,16 +55,40 @@ def clip_text_state_dict(text_params: Mapping[str, Any]
     """flax ``CLIPTextTransformer`` params (``params["text"]``) ->
     ``CLIPTextTransformer.state_dict()`` (float32; ``load_state_dict``
     casts to each parameter's dtype)."""
+    return _tower_state_dict(text_params)
+
+
+def clip_vision_state_dict(visual_params: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """flax ``CLIPVisionTransformer`` params (``params["visual"]``) ->
+    ``CLIPVisionTransformer.state_dict()``."""
+    return _tower_state_dict(visual_params)
+
+
+def _tower_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd = {}
-    for key, val in _flatten(text_params).items():
+    for key, val in _flatten(params).items():
         parts = key.split(".")
         if parts[0].startswith("block_"):
             parts = ["blocks", parts[0][len("block_"):]] + parts[1:]
         leaf = parts[-1]
         t = _tensor(val)
-        if leaf == "kernel":  # nn.Dense (in, out) -> Linear.weight (out, in)
+        if leaf == "kernel" and t.dim() == 4:  # patch conv, HWIO
+            parts[-1], t = "weight", t.reshape(-1, t.shape[-1]).T.contiguous()
+        elif leaf == "kernel":  # nn.Dense (in, out) -> Linear.weight
             parts[-1], t = "weight", t.T.contiguous()
         elif leaf == "embedding":
             parts[-1] = "weight"
         sd[".".join(parts)] = t
+    return sd
+
+
+def clip_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``CLIP`` params (the whole ``params`` tree: ``visual``,
+    ``text``, ``logit_scale``) -> ``CLIP.state_dict()`` (ViT towers)."""
+    sd = {f"visual.{k}": v for k, v in
+          clip_vision_state_dict(params["visual"]).items()}
+    sd.update({f"text.{k}": v for k, v in
+               clip_text_state_dict(params["text"]).items()})
+    sd["logit_scale"] = _tensor(params["logit_scale"]).reshape(())
     return sd

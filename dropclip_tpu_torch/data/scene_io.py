@@ -1,0 +1,77 @@
+"""Processed-scene HDF5 schema (read/write).
+
+Port of ``dropclip_tpu/data/scene_io.py``, byte-compatible with it and with
+the reference's preprocessing output (tools/preprocess_data.py:285-297):
+
+  multiview/per_obj       (K, C)  f32   fused per-object CLIP features
+  multiview/obj_ids       (K,)    u8    object ids (== row index)
+  multiview/objects_info  str           python-literal object metadata
+  pointcloud/xyz          (N, 3)  f32
+  pointcloud/rgb          (N, 3)  f32   0..1
+  pointcloud/label        (N,)    u8    instance ids (0 = table)
+  pointcloud/vis_mask     (V, N)  f32   per-view point visibility
+
+``h5py`` is imported inside the functions: the card's machine has none,
+and the ingest there passes its own writer to ``process_scene``.
+"""
+
+from __future__ import annotations
+
+import os
+from ast import literal_eval
+from typing import Dict, NamedTuple
+
+import numpy as np
+
+
+class ProcessedScene(NamedTuple):
+    xyz: np.ndarray
+    rgb: np.ndarray
+    label: np.ndarray
+    vis_mask: np.ndarray       # (V, N) bool
+    obj_feats: np.ndarray      # (K, C)
+    obj_ids: np.ndarray        # (K,)
+    objects_info: Dict
+
+
+def write_scene(path: str, xyz: np.ndarray, rgb: np.ndarray,
+                label: np.ndarray, vis_mask: np.ndarray,
+                obj_feats: np.ndarray, objects_info: Dict) -> None:
+    """Write atomically (a tmp name renamed into place): the ingest CLI
+    resumes by skipping existing files, so a crash mid-write must not
+    leave a truncated file behind."""
+    import h5py
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    with h5py.File(tmp, "w") as f:
+        mv = f.create_group("multiview")
+        mv.create_dataset("per_obj", data=np.asarray(obj_feats, np.float32))
+        mv.create_dataset("obj_ids", data=np.arange(len(obj_feats)),
+                          dtype="uint8")
+        mv.create_dataset("objects_info", data=str(objects_info))
+        pc = f.create_group("pointcloud")
+        pc.create_dataset("xyz", data=np.asarray(xyz, np.float32))
+        pc.create_dataset("rgb", data=np.asarray(rgb, np.float32))
+        pc.create_dataset("label", data=np.asarray(label), dtype="uint8")
+        pc.create_dataset("vis_mask", data=np.asarray(vis_mask, np.float32))
+    os.replace(tmp, path)
+
+
+def read_scene(path: str) -> ProcessedScene:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        obj_info = f["multiview"]["objects_info"][()]
+        if isinstance(obj_info, bytes):
+            obj_info = obj_info.decode("utf-8")
+        return ProcessedScene(
+            xyz=f["pointcloud"]["xyz"][:],
+            rgb=f["pointcloud"]["rgb"][:],
+            label=f["pointcloud"]["label"][:].astype(np.int32),
+            vis_mask=f["pointcloud"]["vis_mask"][:].astype(np.uint8).astype(
+                bool) if "vis_mask" in f["pointcloud"] else None,
+            obj_feats=f["multiview"]["per_obj"][:],
+            obj_ids=f["multiview"]["obj_ids"][:].astype(np.int32),
+            objects_info=literal_eval(obj_info),
+        )

@@ -3,8 +3,7 @@
 Replaces ``dropclip_tpu/sparse/pallas_conv.py::pallas_brick_conv3``. The
 source is ``csrc/brick_conv3.cu`` (design and bound in its header note);
 it is compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at
-first use, named by the source's hash so an edited source rebuilds, and
-loaded with ``ctypes``.
+first use and loaded with ``ctypes`` (``kernels/nvcc.py``).
 
 ``brick_conv3`` is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it takes the plain version,
@@ -15,77 +14,24 @@ loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
 from ..sparse.bricks import BrickLevel, brick_conv
+from .nvcc import library
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "brick_conv3.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None
-build_log = ""  # nvcc's output (ptxas register / shared-memory report)
+
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dropclip_brick_conv3.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                         i, p]
+    lib.dropclip_brick_conv3.restype = i
 
 
-def _nvcc() -> str:
-    found = os.environ.get("NVCC") or shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: K1 (brick_conv3) is built with the "
-                       "CUDA toolkit on the machine with the card")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libbrick_conv3_{digest[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernel if this source has no library yet; returns its
-    path. Safe against concurrent builders (atomic rename)."""
-    global build_log
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dropclip_brick_conv3.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                             i, i, i, p]
-        lib.dropclip_brick_conv3.restype = i
-        lib.dropclip_cuda_error_string.argtypes = [i]
-        lib.dropclip_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+LIB = library("brick_conv3", _bind)
 
 
 def brick_conv3_plain(feats: torch.Tensor, nbr: torch.Tensor,
@@ -147,7 +93,7 @@ def brick_conv3(feats: torch.Tensor, nbr: torch.Tensor,
         return out
     if c == 0:
         return out.zero_()
-    lib = _load()
+    lib = LIB.load()
     with torch.cuda.device(feats.device):
         # occupied voxel rows first (ascending), then the empty ones, and
         # their count, all on the device: the kernel computes only the
@@ -161,10 +107,7 @@ def brick_conv3(feats: torch.Tensor, nbr: torch.Tensor,
             feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
             order.data_ptr(), n_occ.data_ptr(), out.data_ptr(), bm, bx, by,
             bz, c, cout, _DTYPES[feats.dtype], stream)
-    if err:
-        raise RuntimeError(
-            f"brick_conv3 launch failed: {err} "
-            f"({lib.dropclip_cuda_error_string(err).decode()})")
+    LIB.check(err, "brick_conv3")
     brick_conv3.launches += 1
     return out
 

@@ -22,22 +22,12 @@ import numpy as np
 import torch
 
 from .convert import student_state_dict
+from .core.device import resolve_device
 from .data.voxelize_np import sparse_quantize_np
 from .distill.engine import build_student_for, build_topology, \
     topology_dropped
 from .similarity import (NEGATIVE_PROMPT_GENERIC, ClipSimilarity,
                          predict_from_embeddings)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else the card; raises without one."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "dropclip_tpu_torch serves on a CUDA card and none is visible; "
-            "pass device='cpu' to run the plain PyTorch versions instead")
-    return torch.device("cuda")
 
 
 def make_clip_sim(cfg, device=None, seed: int = 0

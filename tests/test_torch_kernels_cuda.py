@@ -1,5 +1,6 @@
 """The port's hand-written kernels against their plain PyTorch versions on
-the card: K1 (``kernels/brick_conv3.py``, CUDA C++) and K6
+the card: K1 (``kernels/brick_conv3.py``, CUDA C++), K3, K4 and K5
+(``ops/attention.py`` over ``csrc/attention.cu``, CUDA C++), and K6 and K7
 (``ops/layernorm.py``, Triton).
 
 Marked ``cuda``: without a card every test skips. This file imports
@@ -17,7 +18,10 @@ import torch
 from dropclip_tpu_torch.data.synthetic import make_tabletop_coords
 from dropclip_tpu_torch.kernels.brick_conv3 import (brick_conv3,
                                                     brick_conv3_plain)
-from dropclip_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
+from dropclip_tpu_torch.ops import attention as att
+from dropclip_tpu_torch.ops.layernorm import (add_layer_norm,
+                                              add_layer_norm_plain,
+                                              layer_norm, layer_norm_plain)
 from dropclip_tpu_torch.sparse import bricks
 
 pytestmark = pytest.mark.cuda
@@ -105,11 +109,13 @@ def test_k1_wrapper_raises_on_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("rows,c", [(308, 768), (77, 768), (5, 1000),
-                                    (3, 32)])
+                                    (3, 32), (769, 1024), (96, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k6_matches_plain(cuda, rows, c, dtype):
     """float32: rtol 1e-5, atol 1e-5 (reduction order); bf16 in/out: at
-    most one bf16 ulp of the plain result."""
+    most one bf16 ulp of the plain result. The 1024-wide rows are the
+    ViT-L teacher's (ln_pre and block 0's ln_1 over a crop's 769 tokens,
+    ln_post over 96 class tokens)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = (torch.randn((rows, c), generator=gen, device=cuda) * 3
          + torch.randn((1, c), generator=gen, device=cuda)).to(dtype)
@@ -127,3 +133,165 @@ def test_k6_matches_plain(cuda, rows, c, dtype):
         ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(
             torch.finfo(torch.float32).tiny))) - 7)
         assert bool(((got.float() - ref).abs() <= ulp).all())
+
+
+def _bf16_ulp(x):
+    """bf16 spacing at |x| (8 significant bits)."""
+    return 2.0 ** (torch.floor(torch.log2(x.abs().clamp_min(
+        torch.finfo(torch.float32).tiny))) - 7)
+
+
+def _qkv(shape, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").bfloat16()
+            for _ in range(3)]
+
+
+def _assert_attention_close(got, ref):
+    """Online softmax rounds the unnormalised probabilities against a
+    running maximum, the plain version against the row's maximum: at most
+    2 bf16 ulps of max|ref| apart."""
+    got, ref = got.float(), ref.float()
+    tol = 2 * float(_bf16_ulp(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    assert torch.isfinite(got).all() and err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 769, 16, 64), (3, 64, 4, 32),
+                                     (1, 1, 2, 64), (2, 200, 8, 16)])
+def test_k3_k4_match_plain(cuda, b, t, h, d):
+    q, k, v = _qkv((b, t, h, d), seed=b * t + d)
+    n3, n4 = att.oneshot_attention_packed.launches, att.oneshot_attention.launches
+    packed = [x.reshape(b, t, h * d) for x in (q, k, v)]
+    got3 = att.oneshot_attention_packed(*packed, h)
+    ref3 = att.oneshot_attention_packed_plain(*packed, h)
+    got4 = att.oneshot_attention(q, k, v)
+    ref4 = att.oneshot_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert att.oneshot_attention_packed.launches == n3 + 1
+    assert att.oneshot_attention.launches == n4 + 1
+    assert got3.shape == (b, t, h * d) and got4.shape == (b, t, h, d)
+    _assert_attention_close(got3, ref3)
+    _assert_attention_close(got4, ref4)
+    # one kernel: the two layouts give the same bits
+    assert torch.equal(got3.reshape(b, t, h, d), got4)
+
+
+@pytest.mark.parametrize("t,h,causal", [(3026, 6, False), (77, 12, True),
+                                        (130, 4, True), (1000, 2, False)])
+def test_k5_matches_plain(cuda, t, h, causal):
+    q, k, v = _qkv((1, t, h, 64), seed=t)
+    n5 = att.flash_attention_padded.launches
+    got = att.flash_attention_padded(q, k, v, causal)
+    ref = att.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert att.flash_attention_padded.launches == n5 + 1
+    _assert_attention_close(got, ref)
+
+
+def test_attention_keys_past_t_do_not_leak(cuda):
+    """Inf and NaN in the storage right after the last key never reach
+    the output (a batch-1 slice is contiguous, so the kernel gets it)."""
+    b, t, h, d = 1, 70, 2, 64
+    q, k, v = _qkv((b, 128, h, d), seed=9)
+    k[:, t:] = float("inf")
+    v[:, t:] = float("nan")
+    q, k, v = (x[:, :t] for x in (q, k, v))
+    assert k.is_contiguous()
+    got = att.oneshot_attention(q, k, v)
+    assert torch.isfinite(got.float()).all()
+    _assert_attention_close(got, att.oneshot_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("b,t,h,d,causal", [(2, 769, 16, 64, False),
+                                            (3, 77, 12, 64, True),
+                                            (2, 200, 8, 16, False),
+                                            (1, 130, 4, 32, True)])
+def test_attention_float32_matches_plain(cuda, b, t, h, d, causal):
+    """The float32 instance (CUDA cores, no TF32): within 1e-5 of max|ref|
+    plus rtol 1e-4, the summation order and the online rescaling. K3 and
+    K4 give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(t + d)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device=cuda)
+               for _ in range(3))
+    if causal:
+        got = att.flash_attention_padded(q, k, v, True)
+        ref = att.flash_attention_plain(q, k, v, True)
+    else:
+        packed = [x.reshape(b, t, h * d) for x in (q, k, v)]
+        got = att.oneshot_attention(q, k, v)
+        got3 = att.oneshot_attention_packed(*packed, h)
+        assert torch.equal(got3.reshape(b, t, h, d), got)
+        ref = att.oneshot_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("name,overrides,hw", [
+    ("tiny-test", {}, (48, 64)),
+    ("ViT-L/14@336px", {"vision_layers": 2}, (336, 448))])
+def test_default_dtype_vision_tower_on_the_card(cuda, name, overrides, hw):
+    """``build_clip`` with its default dtype (float32) on the card runs
+    the vision tower through the kernels (tiny-test: one head of 64 at
+    T = 13 takes K4; ViT-L at T = 769 takes K3) and matches the same
+    seeded tower on the CPU within 1e-4 of max|ref|."""
+    from dropclip_tpu_torch.teachers.clip import build_clip
+
+    towers = [build_clip(name, generator=torch.Generator().manual_seed(0),
+                         device=dev, **overrides) for dev in ("cuda", "cpu")]
+    px = torch.randn((2,) + hw + (3,), generator=torch.Generator()
+                     .manual_seed(1))
+    n = att.oneshot_attention.launches + att.oneshot_attention_packed.launches
+    with torch.no_grad():
+        for method in ("encode_image", "get_patch_encodings"):
+            got = getattr(towers[0], method)(px.to(cuda)).cpu()
+            ref = getattr(towers[1], method)(px)
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            assert float((got - ref).abs().max()) <= 1e-4 * float(
+                ref.abs().max())
+    assert (att.oneshot_attention.launches
+            + att.oneshot_attention_packed.launches) > n
+
+
+def test_attention_raises_on_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        att.oneshot_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        att.oneshot_attention(q, q.bfloat16(), q)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError):
+        att.oneshot_attention(qb, qb, qb[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        att.oneshot_attention_packed(*[torch.zeros(
+            (1, 8, 2 * 48), device=cuda, dtype=torch.bfloat16)] * 3, 2)
+
+
+@pytest.mark.parametrize("rows,c", [(96 * 769, 1024), (769, 1024), (3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_matches_plain(cuda, rows, c, dtype):
+    """The sum is bit-equal (one rounding of the float32 sum to the
+    stream dtype). y in float32: rtol 1e-5, atol 1e-5 (reduction order).
+    y in bf16: one bf16 ulp of the plain result, the ulp taken at no less
+    than 2^-10: the float32 statistics differ by reduction order, about
+    1e-6 absolute after ``* scale + bias``, which is more than a bf16 ulp
+    only where y cancels to below 2^-13 (seen once in 75M rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    r = (torch.randn((rows, c), generator=gen, device=cuda) * 3).to(dtype)
+    dl = torch.randn((rows, c), generator=gen, device=cuda).to(dtype)
+    s = 1 + 0.1 * torch.randn(c, generator=gen, device=cuda)
+    b = 0.1 * torch.randn(c, generator=gen, device=cuda)
+    before = add_layer_norm.launches
+    got_s, got_y = add_layer_norm(r, dl, s, b)
+    ref_s, ref_y = add_layer_norm_plain(r, dl, s, b)
+    torch.cuda.synchronize()
+    assert add_layer_norm.launches == before + 1
+    assert torch.equal(got_s, ref_s)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got_y, ref_y, rtol=1e-5, atol=1e-5)
+    else:
+        ref = ref_y.float()
+        ulp = _bf16_ulp(ref.abs().clamp_min(2.0 ** -10))
+        assert bool(((got_y.float() - ref).abs() <= ulp).all())

@@ -62,3 +62,34 @@ def test_plain_matches_pallas_interpret():
     got = layer_norm_plain(torch.as_tensor(x), torch.as_tensor(s),
                            torch.as_tensor(b)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,c", [(600, 256), (77, 128)])
+def test_k7_plain_matches_pallas_interpret(dtype, rows, c):
+    """K7 plain (add_layer_norm on CPU tensors) against the TPU kernel
+    (_pallas_fused, interpret mode): the sum bit-equal (one rounding of
+    the float32 sum to the stream dtype); y in float32 within rtol 1e-5,
+    atol 1e-5; y in bf16 within one bf16 ulp."""
+    from dropclip_tpu_torch.ops.layernorm import add_layer_norm
+
+    x, s, b = _inputs(rows, c, seed=3)
+    d = np.random.RandomState(4).randn(rows, c).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    ref_s, ref_y = jln._pallas_fused(
+        jnp.asarray(x, jdt), jnp.asarray(d, jdt), jnp.asarray(s),
+        jnp.asarray(b), eps=1e-5, interpret=True)
+    ref_s = np.asarray(ref_s, np.float32)
+    ref_y = np.asarray(ref_y, np.float32)
+    got_s, got_y = add_layer_norm(
+        torch.as_tensor(x).to(tdt), torch.as_tensor(d).to(tdt),
+        torch.as_tensor(s), torch.as_tensor(b))
+    assert add_layer_norm.launches == 0  # CPU tensors never launch K7
+    assert got_s.dtype == got_y.dtype == tdt
+    np.testing.assert_array_equal(got_s.float().numpy(), ref_s)
+    got_y = got_y.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got_y, ref_y, rtol=1e-5, atol=1e-5)
+    else:
+        assert (np.abs(got_y - ref_y) <= _bf16_ulp(ref_y)).all()
