@@ -5,9 +5,9 @@
 
 1. records the card (nvidia-smi name and power limit) and builds every
    kernel from this checkout side by side: the CUDA sources with nvcc into
-   ``build/kernels/`` (K1 ``csrc/brick_conv3.cu``; K3, K4 and K5
-   ``csrc/attention.cu``) and the Triton kernels K6 and K7 by a first
-   launch;
+   ``build/kernels/`` (K1 ``csrc/brick_conv3.cu``; K2
+   ``csrc/pillar_conv3.cu``; K3, K4 and K5 ``csrc/attention.cu``) and the
+   Triton kernels K6 and K7 by a first launch;
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes its paths give it (K1: the 16 k3 convs of MinkUNet14D at batch 8
    in float32 with TF32 off and in bf16; K6: the text tower's (Q*77, 768)
@@ -25,7 +25,18 @@
    launch counters that K1 ran 16 times per student forward and K6 25
    times per text encode; one request on the card against the CPU; a
    profile of one ``ground`` and one ``ground_batch``;
-4. ingest path: ``tools.preprocess_data.process_scene`` at bench.py's
+4. pillar serve path (the volumetric engine): 8 bin-like scenes
+   (``make_volumetric_coords``, 6000 voxels at 5 cm through a 32-voxel z
+   range) at the same full width; site capacities and pillar_z0 fitted
+   over all 8 with the pipeline's own rule; K2 against its plain version
+   at the 16 k3 conv shapes of a real pillar forward (float32 and bf16,
+   random scale, bias and relu, a random-occupancy case, and a planted
+   fault: the dz = -1 and +1 taps swapped), timed with the column gather
+   + cuDNN ``conv1d`` yardstick; ``ground`` over the 8 scenes (K2 16
+   times per forward, K6 25 per encode, nothing dropped); one request on
+   the card against the CPU; the pillar engine against the brick engine
+   on one scene with the same weights; a profile of one request;
+5. ingest path: ``tools.preprocess_data.process_scene`` at bench.py's
    fusion shape (73 views at 480x640, 10 objects, ViT-L/14@336px teacher
    in bf16 at full width and depth, voxel 0.005, cloud capacity 131072),
    one warm scene and one timed, checking that K3 ran 24 times, K7 47 and
@@ -33,7 +44,7 @@
    forward with ``DROPCLIP_PACKED_ATTN=0`` (K4) and the teacher at a
    doubled input (K5); three reduced scenes on the card against the CPU,
    with planted faults that the limits must see; a profile of one scene;
-5. prints the ``kernels`` JSON line, the card line and, last,
+6. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero. Without a CUDA card the
@@ -102,7 +113,8 @@ def build_kernels():
     """Compile every kernel side by side: the CUDA sources (one nvcc each,
     started together) and the Triton kernels K6 and K7 (by a first
     launch). Returns ({name: build seconds}, {source: ptxas report})."""
-    from dropclip_tpu_torch.kernels import attention, brick_conv3  # noqa
+    from dropclip_tpu_torch.kernels import (attention, brick_conv3,  # noqa
+                                            pillar_conv3)
     from dropclip_tpu_torch.kernels.nvcc import LIBRARIES
     from dropclip_tpu_torch.ops.layernorm import add_layer_norm, layer_norm
 
@@ -423,17 +435,14 @@ def cpu_phase(cfg, pipe, clouds, rgbs, report):
           f"grounding differs: |dsims| {dsims}, agreement {agree}")
 
 
-def profile_phase(pipe, clouds, rgbs, report):
-    """One ground request and one ground_batch under torch.profiler: the
-    device's busy share of the wall time and the kernels that fill it.
-    The ground request's trace goes to chiprun_out/trace_ground.json."""
+def profile_phase(cases, tags, report, trace=None):
+    """Each ``(name, fn)`` of ``cases`` under torch.profiler: the device's
+    busy share of the wall time and the kernels that fill it, and for each
+    ``(tag, kernel name)`` of ``tags`` the launches and device time. The
+    trace of case ``trace`` goes to chiprun_out/trace_<trace>.json."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    queries = ["a red box", "the cup"]
-    cases = (("ground", lambda: pipe.ground(clouds[6], rgbs[6], queries)),
-             ("ground_batch",
-              lambda: pipe.ground_batch(clouds, rgbs, queries)))
     for name, fn in cases:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -458,16 +467,312 @@ def profile_phase(pipe, clouds, rgbs, report):
                   f"{e.count:5d} calls  {e.key[:90]}", flush=True)
         # the port's own kernels: device time per launch, free of the
         # host's launch overhead that CUDA events around a loop include
-        for tag, key in (("K1", "brick_conv3_kernel"), ("K6", "_ln_rows")):
+        for tag, key in tags:
             mine = [e for e in kernels if key in e.key]
             n = sum(e.count for e in mine)
             dev = sum(e.self_device_time_total for e in mine) / 1e3
             report["profile"][name][tag] = dict(launches=n, device_ms=dev)
             print(f"  {tag}: {n} launches, {dev} ms on the device, "
                   f"{dev / max(n, 1)} ms each", flush=True)
-        if name == "ground":
+        if name == trace:
             prof.export_chrome_trace(os.path.join(
-                ROOT, "chiprun_out", "trace_ground.json"))
+                ROOT, "chiprun_out", f"trace_{name}.json"))
+
+
+def make_volumetric_clouds(n_scenes):
+    """Bin and shelf clouds: 6000 voxels of solid boxes through a 32-voxel
+    z range at 5 cm (``make_volumetric_coords(rng, 8, 8192, n_occ=6000,
+    ext=20, zext=32)``), one jittered point per voxel plus a second for
+    half of them."""
+    from dropclip_tpu_torch.data.synthetic import make_volumetric_coords
+
+    rng = np.random.RandomState(SEED + 5)
+    coords, mask = make_volumetric_coords(rng, n_scenes, 8192, n_occ=6000,
+                                          ext=20, zext=32)
+    clouds, rgbs = [], []
+    for b in range(n_scenes):
+        c = coords[b][mask[b]].astype(np.float32)
+        pts = np.concatenate([c, c[: len(c) // 2]])
+        xyz = (pts + rng.rand(*pts.shape).astype(np.float32)) * 0.05
+        clouds.append(xyz.astype(np.float32))
+        rgbs.append(rng.rand(len(xyz), 3).astype(np.float32))
+    return clouds, rgbs
+
+
+def k2_limits(got, ref, dtype):
+    """(within the limit, max |err|, max |ref|): float32 (TF32 off) rtol
+    1e-4 plus atol 1e-4 * max|ref| (the summation order of 27*C terms);
+    bf16 with float32 accumulation 1e-2 of max|ref| (one bf16 rounding of
+    the output), as for K1."""
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if dtype == torch.float32:
+        ok = torch.allclose(got, ref, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        ok = err <= 1e-2 * scale
+    return bool(ok) and scale > 0, err, scale
+
+
+def k2_phase(ppipe, clouds, rgbs, report):
+    """K2 against its plain version at the 16 k3 conv shapes of a pillar
+    forward on volumetric scene 0, float32 and bf16, with random scale,
+    bias and relu; per shape also a random occupancy (float32) and the
+    planted fault (dz = -1 and +1 taps swapped), which must fail the limit
+    the kernel passes. Times: kernel, plain version, and the yardstick the
+    port never calls: the column gather (P, 9*C, Z) and one cuDNN
+    ``conv1d`` (kernel 3, padding 1, TF32 off) with the same epilogue."""
+    import torch.nn.functional as F
+
+    from dropclip_tpu_torch.kernels.pillar_conv3 import (pillar_conv3,
+                                                         pillar_conv3_plain)
+    from dropclip_tpu_torch.sparse.pillar_ops import gather_rows, z_shift
+    from dropclip_tpu_torch.sparse.pillar_topology import \
+        build_pillar_topology
+
+    vox = ppipe._host_voxelize(clouds[0], rgbs[0])[0]
+    topo = build_pillar_topology(vox.coords, vox.mask, z0=ppipe.pillar_z0,
+                                 site_capacities=ppipe.pillar_caps,
+                                 device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0}
+    max_err, worst_fault = 0.0, float("inf")
+    for i, (lvl, c, cout) in enumerate(main_path_shapes(ppipe.model)):
+        lv = topo.levels[lvl]
+        p, z = lv.occ.shape
+        occf = lv.occ.float()
+        # data-needed work: occupied (output slot, occupied source) pairs
+        src = gather_rows(occf, lv.nbr9)  # (P, 9, Z)
+        taps = sum(z_shift(src, dz, axis=-1) for dz in (-1, 0, 1)).sum(1)
+        pairs = float((taps * occf).sum())
+        relu = i % 2 == 0
+        row = dict(shape=i, level=lvl, p=p, z=z, c=c, cout=cout, relu=relu,
+                   occupied=int(lv.occ.sum()), pairs=pairs)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((p, z, c), generator=gen, device="cuda")
+                 * occf[..., None]).to(dtype)
+            w = (torch.randn((9, 3, c, cout), generator=gen, device="cuda")
+                 * (2.0 / (27 * cout)) ** 0.5).to(dtype)
+            sc = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+            bi = 0.1 * torch.randn(cout, generator=gen, device="cuda")
+            args = (x, lv.nbr9, w, lv.occ, sc, bi)
+            ok, err, scale = k2_limits(pillar_conv3(*args, relu=relu),
+                                       pillar_conv3_plain(*args, relu=relu),
+                                       dtype)
+            check(ok, f"K2 {dtype} shape {i} (L{lvl} {c}->{cout}, P {p}, Z "
+                  f"{z}): max err {err} vs max|ref| {scale}")
+            swapped = (x, lv.nbr9, w.flip(1).contiguous(), lv.occ, sc, bi)
+            f_ok, f_err, _ = k2_limits(pillar_conv3(*swapped, relu=relu),
+                                       pillar_conv3_plain(*args, relu=relu),
+                                       dtype)
+            check(not f_ok, f"K2 {dtype} shape {i}: the limit does not see "
+                  f"swapped z taps (err {f_err})")
+            worst_fault = min(worst_fault, f_err / scale)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            row.update({f"{tag}_max_abs_err": err, f"{tag}_rel_err":
+                        err / scale, f"{tag}_fault_rel_err": f_err / scale})
+            if dtype != torch.float32:
+                continue
+            rocc = torch.rand((p, z), generator=gen, device="cuda") < 0.5
+            r_args = (x, lv.nbr9, w, rocc, sc, bi)
+            r_ok, r_err, r_scale = k2_limits(
+                pillar_conv3(*r_args, relu=relu),
+                pillar_conv3_plain(*r_args, relu=relu), dtype)
+            check(r_ok, f"K2 f32 shape {i} with random occupancy: max err "
+                  f"{r_err} vs max|ref| {r_scale}")
+            max_err = max(max_err, err)
+            es = x.element_size()
+            nbytes = ((x.numel() + w.numel() + p * z * cout) * es
+                      + lv.nbr9.numel() * 4 + lv.occ.numel() + 2 * cout * 4)
+            flops = 2.0 * pairs * c * cout
+            bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
+            w1 = w.permute(3, 0, 2, 1).reshape(cout, 9 * c, 3).contiguous()
+
+            def library():
+                cols = gather_rows(x, lv.nbr9).permute(0, 1, 3, 2)
+                y = F.conv1d(cols.reshape(p, 9 * c, z), w1, padding=1)
+                y = y.transpose(1, 2) * sc + bi
+                return (torch.relu(y) if relu else y) * lv.occ[..., None]
+
+            lib_ok, lib_err, _ = k2_limits(
+                library(), pillar_conv3_plain(*args, relu=relu), dtype)
+            check(lib_ok, f"K2 yardstick shape {i} disagrees ({lib_err})")
+            row.update(
+                ms=cuda_ms(lambda: pillar_conv3(*args, relu=relu), 5),
+                plain_ms=cuda_ms(lambda: pillar_conv3_plain(*args,
+                                                            relu=relu),
+                                 2, warmup=1),
+                library_ms=cuda_ms(library, 3, warmup=1), bound_ms=bound,
+                bound_by="operations" if flops / PEAK_FLOPS[dtype]
+                > nbytes / PEAK_BYTES else "bytes", flops_needed=flops,
+                flops_rows=2.0 * row["occupied"] * 27 * c * cout,
+                flops_padded=2.0 * p * z * 27 * c * cout, bytes=nbytes,
+                random_occ_max_abs_err=r_err)
+            for k in tot:
+                tot[k] += row[k]
+        rows.append(row)
+        print(f"K2 L{lvl} P={p:4d} Z={z:3d} {c:4d}->{cout:4d} relu={relu:d}: "
+              f"f32 err {row['f32_max_abs_err']:.3e} (rel "
+              f"{row['f32_rel_err']:.3e}) bf16 rel {row['bf16_rel_err']:.3e}; "
+              f"swapped-dz fault rel {row['f32_fault_rel_err']:.3e} / "
+              f"{row['bf16_fault_rel_err']:.3e} | kernel {row['ms']:.4f} ms "
+              f"plain {row['plain_ms']:.4f} ms gather+conv1d "
+              f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+    report["k2_shapes"] = rows
+    print(f"K2 per pillar forward (16 convs, f32): kernel {tot['ms']} ms, "
+          f"plain {tot['plain_ms']} ms, gather+conv1d {tot['library_ms']} "
+          f"ms, bound {tot['bound_ms']} ms; smallest planted-fault error "
+          f"{worst_fault} of max|ref|", flush=True)
+    del topo
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, bound_by="operations", **tot)
+
+
+PILLAR_QUERIES = [["the metal bin", "a cardboard box"],
+                  ["the top shelf", "a plastic tote"], ["a red crate", "the box"],
+                  ["a bottle of soap", "the white bag"],
+                  ["a blue bin", "the green crate"], ["a can", "the tote"],
+                  ["a black box", "the red bottle"], ["a pouch", "the jar"]]
+
+
+def pillar_serve_phase(ppipe, clouds, rgbs, report):
+    """``ground`` on the pillar engine over the 8 volumetric scenes after a
+    warm-up request, kernels counted; nothing may be dropped."""
+    from dropclip_tpu_torch.kernels.pillar_conv3 import pillar_conv3
+    from dropclip_tpu_torch.ops.layernorm import layer_norm
+    from dropclip_tpu_torch.sparse.pillar_topology import \
+        build_pillar_topology
+
+    sim = ppipe.clip_sim
+    t = time.time()
+    ppipe.ground(clouds[0], rgbs[0], ["a warm-up query", "the bin"])
+    print(f"pillar warm-up request: {(time.time() - t) * 1e3} ms",
+          flush=True)
+    # the host layer: topology build (numpy) and its copy to the card
+    topo_ms = []
+    for x, r in zip(clouds, rgbs):
+        vox = ppipe._host_voxelize(x, r)[0]
+        torch.cuda.synchronize()
+        t = time.time()
+        build_pillar_topology(vox.coords, vox.mask, z0=ppipe.pillar_z0,
+                              site_capacities=ppipe.pillar_caps,
+                              device="cuda")
+        torch.cuda.synchronize()
+        topo_ms.append((time.time() - t) * 1e3)
+    print(f"pillar topology build + copy to the card: {topo_ms} ms",
+          flush=True)
+    pillar_conv3.launches = 0
+    layer_norm.launches = 0
+    fwd0, enc0 = ppipe.forwards, sim.encodes
+    req_ms, dropped = [], []
+    for i, (x, r) in enumerate(zip(clouds, rgbs)):
+        torch.cuda.synchronize()
+        t = time.time()
+        masks, sims = ppipe.ground(x, r, PILLAR_QUERIES[i])
+        req_ms.append((time.time() - t) * 1e3)
+        dropped.append(ppipe.last_dropped)
+        valid = ppipe._host_voxelize(x, r)[0].mask
+        check(masks.shape == (2, len(x)) and masks.dtype == bool,
+              f"pillar ground masks shape {masks.shape}")
+        check(sims.shape == (2, ppipe.capacity) and np.isfinite(sims).all()
+              and sims[:, valid].min() >= 0
+              and sims[:, valid].max() <= 1 + 1e-6,
+              "pillar ground sims not finite in [0, 1] on the valid voxels")
+        check(0 < masks.mean() < 1, "degenerate pillar grounding mask")
+        print(f"pillar ground request {i}: {req_ms[-1]} ms, {valid.sum()} "
+              f"voxels, last_dropped {ppipe.last_dropped}, mask fraction "
+              f"{masks.mean(1)}", flush=True)
+    fwds, encs = ppipe.forwards - fwd0, sim.encodes - enc0
+    k2_n, k6_n = pillar_conv3.launches, layer_norm.launches
+    print(f"pillar launches: K2 {k2_n} over {fwds} student forwards, K6 "
+          f"{k6_n} over {encs} text encodes; per request "
+          f"{np.mean(req_ms)} ms mean, {np.median(req_ms)} ms median",
+          flush=True)
+    check(all(d == 0 for d in dropped), f"pillar sites dropped: {dropped}")
+    check(fwds == len(clouds) and k2_n == 16 * fwds,
+          f"K2 ran {k2_n} times over {fwds} forwards (want 16 each)")
+    check(encs >= 1 and k6_n == 25 * encs,
+          f"K6 ran {k6_n} times over {encs} encodes (want 25 each)")
+    report["pillar_serve"] = dict(
+        request_ms=req_ms, topology_ms=topo_ms, forwards=fwds,
+        encodes=encs, k2_launches=k2_n,
+        k6_launches=k6_n, last_dropped=dropped,
+        z0=ppipe.pillar_z0, site_capacities=ppipe.pillar_caps)
+    return k2_n, k6_n
+
+
+def pillar_cpu_phase(pcfg, ppipe, clouds, rgbs, report):
+    """One pillar request on the card and on the CPU (plain versions),
+    same seeded weights and static shapes, with the brick check's
+    limits."""
+    from dropclip_tpu_torch.pipeline import GroundingPipeline, make_clip_sim
+
+    cpu = GroundingPipeline(pcfg, clip_sim=make_clip_sim(pcfg, "cpu", SEED),
+                            device="cpu", seed=SEED,
+                            pillar_site_capacities=ppipe.pillar_caps,
+                            pillar_z0=ppipe.pillar_z0)
+    x, r, q = clouds[5], rgbs[5], PILLAR_QUERIES[0]
+    f_gpu = ppipe.featurize(x, r)[0].cpu()
+    t = time.time()
+    f_cpu = cpu.featurize(x, r)[0]
+    cpu_ms = (time.time() - t) * 1e3
+    feat_rel = float((f_gpu - f_cpu).abs().max() / f_cpu.abs().max())
+    m_gpu, s_gpu = ppipe.ground(x, r, q)
+    m_cpu, s_cpu = cpu.ground(x, r, q)
+    dsims = float(np.abs(s_gpu - s_cpu).max())
+    agree = float((m_gpu == m_cpu).mean())
+    print(f"pillar card vs CPU: student features max rel diff {feat_rel} "
+          f"(CPU forward {cpu_ms} ms), sims max |d| {dsims}, mask "
+          f"agreement {agree}", flush=True)
+    report["pillar_card_vs_cpu"] = dict(feat_max_rel=feat_rel,
+                                        sims_max_abs=dsims,
+                                        mask_agreement=agree, cpu_ms=cpu_ms)
+    check(feat_rel <= 1e-4, f"pillar student features differ by {feat_rel}")
+    check(dsims <= 0.05 and agree >= 0.99,
+          f"pillar grounding differs: |dsims| {dsims}, agreement {agree}")
+
+
+def pillar_vs_brick_phase(cfg, ppipe, clouds, rgbs, report):
+    """The pillar engine against the port's brick engine on volumetric
+    scene 2, same seeded weights, on the card; brick capacities autotuned
+    on that scene so neither engine drops a voxel."""
+    from dropclip_tpu_torch.distill.engine import brick_shape_of
+    from dropclip_tpu_torch.pipeline import GroundingPipeline
+    from dropclip_tpu_torch.sparse.bricks import autotune_brick_capacities
+
+    x, r, q = clouds[2], rgbs[2], PILLAR_QUERIES[2]
+    bcfg = type(cfg)(dict(cfg))
+    vox = ppipe._host_voxelize(x, r)[0]
+    caps = autotune_brick_capacities(vox.coords[None], vox.mask[None],
+                                     brick_shape=brick_shape_of(bcfg))
+    bpipe = GroundingPipeline(bcfg, clip_sim=ppipe.clip_sim,
+                              brick_capacities=caps, device="cuda",
+                              seed=SEED)
+    sb, sp = bpipe.model.state_dict(), ppipe.model.state_dict()
+    check(all(torch.equal(sb[k], sp[k]) for k in sb),
+          "the engines drew different weights from one seed")
+    f_b = bpipe.featurize(x, r)[0]
+    check(bpipe.last_dropped == 0, f"brick engine dropped "
+          f"{bpipe.last_dropped} voxels")
+    f_p = ppipe.featurize(x, r)[0]
+    check(ppipe.last_dropped == 0, "pillar engine dropped sites")
+    feat_rel = float((f_p - f_b).abs().max() / f_b.abs().max())
+    m_b, s_b = bpipe.ground(x, r, q)
+    m_p, s_p = ppipe.ground(x, r, q)
+    dsims = float(np.abs(s_p - s_b).max())
+    agree = float((m_p == m_b).mean())
+    print(f"pillar vs brick engine (scene 2, {int(vox.mask.sum())} voxels, "
+          f"brick capacities {caps}): features max rel diff {feat_rel}, "
+          f"sims max |d| {dsims}, mask agreement {agree}", flush=True)
+    report["pillar_vs_brick"] = dict(feat_max_rel=feat_rel,
+                                     sims_max_abs=dsims,
+                                     mask_agreement=agree,
+                                     brick_capacities=list(caps))
+    check(feat_rel <= 1e-4 and dsims <= 0.05 and agree >= 0.99,
+          f"pillar and brick engines disagree: features {feat_rel}, "
+          f"|dsims| {dsims}, agreement {agree}")
 
 
 ATTN_ULPS = 1  # bf16 limit, in ulps of max|ref|
@@ -973,8 +1278,11 @@ def main():
     # fails here, before any output, when run outside a checkout
     from dropclip_tpu_torch.core.config import load_cfg
     from dropclip_tpu_torch.distill.engine import brick_shape_of
-    from dropclip_tpu_torch.pipeline import GroundingPipeline, make_clip_sim
+    from dropclip_tpu_torch.pipeline import (GroundingPipeline,
+                                             fit_pillar_shapes, make_clip_sim)
     from dropclip_tpu_torch.sparse.bricks import autotune_brick_capacities
+    from dropclip_tpu_torch.sparse.pillar_topology import \
+        build_pillar_topology
     from dropclip_tpu_torch.tools.preprocess_data import build_extractor
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1015,8 +1323,36 @@ def main():
     k1_n, k6_n = serve_phase(pipe, clouds, rgbs, report)
     cpu_phase(cfg, pipe, clouds, rgbs, report)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    profile_phase(pipe, clouds, rgbs, report)
+    queries = ["a red box", "the cup"]
+    profile_phase(
+        (("ground", lambda: pipe.ground(clouds[6], rgbs[6], queries)),
+         ("ground_batch", lambda: pipe.ground_batch(clouds, rgbs, queries))),
+        (("K1", "brick_conv3_kernel"), ("K6", "_ln_rows")), report,
+        trace="ground")
     del pipe
+    torch.cuda.empty_cache()
+
+    # the pillar engine: the same config with sparse_backend pillars
+    pcfg = type(cfg)(dict(cfg, sparse_backend="pillars"))
+    vclouds, vrgbs = make_volumetric_clouds(BATCH)
+    ppipe = GroundingPipeline(pcfg, clip_sim=clip_sim, device="cuda",
+                              seed=SEED)
+    vvox = [ppipe._host_voxelize(x, r)[0] for x, r in zip(vclouds, vrgbs)]
+    ppipe.pillar_z0, ppipe.pillar_caps = fit_pillar_shapes([
+        build_pillar_topology(v.coords, v.mask, device="cpu") for v in vvox])
+    print(f"volumetric scenes: {[int(v.mask.sum()) for v in vvox]} voxels; "
+          f"pillar_z0 {ppipe.pillar_z0}, site capacities "
+          f"{ppipe.pillar_caps} (fitted over all {BATCH})", flush=True)
+    k2 = k2_phase(ppipe, vclouds, vrgbs, report)
+    k2_n, k6_np = pillar_serve_phase(ppipe, vclouds, vrgbs, report)
+    pillar_cpu_phase(pcfg, ppipe, vclouds, vrgbs, report)
+    pillar_vs_brick_phase(cfg, ppipe, vclouds, vrgbs, report)
+    profile_phase(
+        (("pillar_ground", lambda: ppipe.ground(vclouds[7], vrgbs[7],
+                                                queries)),),
+        (("K2", "pillar_conv3_kernel"), ("K6", "_ln_rows")), report,
+        trace="pillar_ground")
+    del ppipe
     torch.cuda.empty_cache()
 
     att = attention_phase(report)
@@ -1040,6 +1376,10 @@ def main():
              source="dropclip_tpu_torch/csrc/brick_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_conv.py:125",
              launches=k1_n, **k1),
+        dict(name="K2 pillar_conv3", route="cuda",
+             source="dropclip_tpu_torch/csrc/pillar_conv3.cu",
+             replaces="dropclip_tpu/sparse/pallas_pillar.py:134",
+             launches=k2_n, **k2),
         dict(name="K3 oneshot_attention_packed", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:180",
@@ -1055,7 +1395,7 @@ def main():
         dict(name="K6 layer_norm", route="triton",
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:153",
-             launches=k6_n + n_ing["K6"], **k6),
+             launches=k6_n + k6_np + n_ing["K6"], **k6),
         dict(name="K7 add_layer_norm", route="triton",
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:125",

@@ -4,10 +4,12 @@ Inputs are nested dicts of numpy arrays (``jax.tree_util.tree_map(
 np.asarray, variables)`` on the JAX side, or any checkpoint reader that
 yields the same tree); nothing here imports jax.
 
-- Student (``MinkUNetBricks``): ``params`` + ``batch_stats`` flatten one
-  to one onto the module tree — sparse kernels stay (K, Cin, Cout) in
-  ``bricks._NBR_OFFSETS`` order, BN maps ``scale``/``bias`` (params) and
-  ``mean``/``var`` (batch stats).
+- Student (``MinkUNetBricks`` or ``MinkUNetPillars``: one flax tree for
+  both engines, as in the JAX package): ``params`` + ``batch_stats``
+  flatten one to one onto the module tree — sparse kernels stay
+  (K, Cin, Cout) in ``bricks._NBR_OFFSETS`` order (the pillar engine
+  reshapes them to (xy-dirs, dz, Cin, Cout) at use), BN maps
+  ``scale``/``bias`` (params) and ``mean``/``var`` (batch stats).
 - CLIP text tower (``CLIPTextTransformer``): the ``params["text"]`` tree;
   ``nn.Dense`` kernels are (in, out) and transpose to ``Linear.weight``,
   ``block_i`` becomes ``blocks.i``, the embedding table, positional
@@ -44,7 +46,8 @@ def _tensor(a) -> torch.Tensor:
 def student_state_dict(params: Mapping[str, Any],
                        batch_stats: Mapping[str, Any]
                        ) -> Dict[str, torch.Tensor]:
-    """flax MinkUNetBricks variables -> ``MinkUNetBricks.state_dict()``."""
+    """flax student variables (any engine) -> the state dict of
+    ``MinkUNetBricks`` and of ``MinkUNetPillars`` (the same keys)."""
     sd = {k: _tensor(v) for k, v in _flatten(params).items()}
     sd.update({k: _tensor(v) for k, v in _flatten(batch_stats).items()})
     return sd

@@ -7,7 +7,9 @@ numbers from the same random state), numpy only:
   statistics (the serve path);
 - ``make_raw_scene``: a miniature raw multi-view MV-TOD scene (box-cluster
   objects on a table, cameras on a ring, depth, instance segs and RGB
-  rendered from the points, COCO-style object metadata) for ingest.
+  rendered from the points, COCO-style object metadata) for ingest;
+- ``make_volumetric_coords``: voxel coordinates of bin and shelf scenes,
+  solid boxes through the z range (the pillar engine's path).
 """
 
 from __future__ import annotations
@@ -145,6 +147,50 @@ def make_tabletop_coords(rng: np.random.RandomState, batch: int,
         uniq = np.unique(pts, axis=0)
         rng.shuffle(uniq)
         uniq = uniq[: min(n_occ, capacity)]
+        coords[b, : len(uniq)] = uniq
+        mask[b, : len(uniq)] = True
+    return coords, mask
+
+
+def make_volumetric_coords(rng: np.random.RandomState, batch: int,
+                           capacity: int, n_occ: int = 6000, ext: int = 20,
+                           zext: int = 32) -> Tuple[np.ndarray, np.ndarray]:
+    """Padded voxel coords with VOLUMETRIC occupancy statistics.
+
+    Bin-picking / shelf scenes: solid object boxes stacked through the
+    full z range, so occupied (x, y) sites carry DEEP z columns — the
+    regime where the pillar layout's full-height columns fill well
+    (vs the z-thin tabletop scenes of make_tabletop_coords, where
+    pillars pay a 3-4x padding tax). The scenes of the pillar serve
+    path in chip_smoke.py.
+    Returns (coords (B, capacity, 3) int32, mask (B, capacity) bool);
+    z values lie in [0, zext).
+    """
+    coords = np.zeros((batch, capacity, 3), np.int32)
+    mask = np.zeros((batch, capacity), bool)
+    budget = min(n_occ, capacity)
+    for b in range(batch):
+        seen: set = set()
+        pts = []
+        # add WHOLE boxes until the budget is met — truncating a random
+        # voxel subset would punch holes in the z columns and erase the
+        # very depth statistic this generator exists to produce
+        while len(pts) < budget:
+            c = np.array([rng.randint(-ext + 7, ext - 6),
+                          rng.randint(-ext + 7, ext - 6),
+                          rng.randint(6, max(zext - 6, 7))])
+            h = np.array([rng.randint(3, 7), rng.randint(3, 7),
+                          rng.randint(4, 9)])
+            xs = np.arange(max(c[0] - h[0], -ext), min(c[0] + h[0], ext))
+            ys = np.arange(max(c[1] - h[1], -ext), min(c[1] + h[1], ext))
+            zs = np.arange(max(c[2] - h[2], 0), min(c[2] + h[2], zext))
+            box = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"),
+                           axis=-1).reshape(-1, 3)
+            for q in map(tuple, box.tolist()):
+                if q not in seen and len(pts) < budget:
+                    seen.add(q)
+                    pts.append(q)
+        uniq = np.asarray(pts, np.int32)
         coords[b, : len(uniq)] = uniq
         mask[b, : len(uniq)] = True
     return coords, mask

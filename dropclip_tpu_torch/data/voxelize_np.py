@@ -46,7 +46,7 @@ def sparse_quantize_np(
     skeys = keys[order]
     valid = skeys != np.iinfo(np.int64).max
     heads = np.empty(n, bool)
-    heads[0] = valid[0]
+    heads[:1] = valid[:1]  # an empty cloud has no head
     heads[1:] = (skeys[1:] != skeys[:-1]) & valid[1:]
     vox_id = np.cumsum(heads) - 1
     num = int(heads.sum())

@@ -1,16 +1,19 @@
 """Deployable single-view grounding pipeline on one CUDA card.
 
-Port of ``dropclip_tpu/pipeline.py`` (bricks engine, single device):
+Port of ``dropclip_tpu/pipeline.py`` (single device):
 
     pipe = GroundingPipeline(cfg, params, batch_stats, clip_sim)
     masks, sims = pipe.ground(xyz, rgb, ["the red mug"])
 
-voxelize (host, numpy) -> brick topology (torch, on the card) ->
-MinkUNet on bricks (every k3 conv through K1) -> paired-softmax
-grounding against cached text embeddings (CLIP text tower, LayerNorms
-through K6). Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``, which runs the plain versions of the kernels; without a
-card and without ``device``, construction raises instead of falling back.
+voxelize (host, numpy) -> student -> paired-softmax grounding against
+cached text embeddings (CLIP text tower, LayerNorms through K6). Two
+engines run the student: "bricks" (the default; brick topology built by
+torch ops on the card, every k3 conv through K1) and "pillars" (the
+volumetric engine for bin and shelf scenes; host-built pillar topology at
+frozen static shapes, every k3 conv through K2, one scene per call).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
+which runs the plain versions of the kernels; without a card and without
+``device``, construction raises instead of falling back.
 """
 
 from __future__ import annotations
@@ -28,6 +31,19 @@ from .distill.engine import build_student_for, build_topology, \
     topology_dropped
 from .similarity import (NEGATIVE_PROMPT_GENERIC, ClipSimilarity,
                          predict_from_embeddings)
+from .sparse.pillar_topology import build_pillar_topology
+from .sparse.unet_pillars import build_student_pillars
+
+
+def fit_pillar_shapes(probes) -> Tuple[int, List[int]]:
+    """The pillar engine's static shapes from exact-fit topologies: z0 =
+    16 * ceil(1.5 * z / 16) and each level's site capacity 16 * ceil(1.3 *
+    P / 16), the largest over ``probes``."""
+    z0 = max(16 * int(np.ceil(t.levels[0].occ.shape[1] * 1.5 / 16))
+             for t in probes)
+    caps = [max(16 * int(np.ceil(t.levels[lvl].occ.shape[0] * 1.3 / 16))
+                for t in probes) for lvl in range(len(probes[0].levels))]
+    return z0, caps
 
 
 def make_clip_sim(cfg, device=None, seed: int = 0
@@ -57,21 +73,28 @@ class GroundingPipeline:
     """xyz/rgb -> per-point features -> text-query 3D masks.
 
     ``params``/``batch_stats``: the JAX student's flax trees as numpy
-    dicts (``convert.student_state_dict`` maps them); None draws a seeded
-    student. ``forwards`` counts student forwards (each runs 16 k3 convs
-    on MinkUNet14D)."""
+    dicts (``convert.student_state_dict`` maps them, for either engine);
+    None draws a seeded student. ``forwards`` counts student forwards
+    (each runs 16 k3 convs on MinkUNet14D).
+
+    ``engine``: "bricks" (``cfg.sparse_backend``'s default) or "pillars".
+    The pillar engine's static shapes (``pillar_site_capacities`` per level
+    and ``pillar_z0``) default to a slack-padded fit of the FIRST scene
+    (``fit_pillar_shapes``), so later scenes reuse them; pass them when
+    the first scene is not representative."""
 
     def __init__(self, cfg, params: Optional[Mapping[str, Any]] = None,
                  batch_stats: Optional[Mapping[str, Any]] = None,
                  clip_sim: Optional[ClipSimilarity] = None,
                  brick_capacities: Optional[Sequence[int]] = None,
-                 engine: Optional[str] = None, device=None, seed: int = 0):
+                 engine: Optional[str] = None, device=None, seed: int = 0,
+                 pillar_site_capacities: Optional[Sequence[int]] = None,
+                 pillar_z0: Optional[int] = None):
         self.engine = engine or cfg.sparse_backend or "bricks"
-        if self.engine != "bricks":
+        if self.engine not in ("bricks", "pillars"):
             raise NotImplementedError(
-                f"engine {self.engine!r} is not ported yet: the gather and "
-                "pillar engines come with slice 3 (ROADMAP queue 1 items "
-                "22-23)")
+                f"engine {self.engine!r} is not ported yet: the gather "
+                "engine comes with slice 3 (ROADMAP queue 1 item 22)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.capacity = int(cfg.voxel_capacity or 8192)
@@ -79,10 +102,16 @@ class GroundingPipeline:
         self.use_color = bool(cfg.use_color)
         if brick_capacities:
             cfg.brick_capacities = list(brick_capacities)
-        self.last_dropped = 0  # voxels truncated by the last forward
+        self.last_dropped = 0  # voxels / sites truncated by the last forward
         self.forwards = 0
-        self.model = build_student_for(
-            cfg, generator=torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
+        if self.engine == "pillars":
+            self.model = build_student_pillars(cfg, generator=gen)
+            self.pillar_caps = (list(pillar_site_capacities)
+                                if pillar_site_capacities else None)
+            self.pillar_z0 = pillar_z0
+        else:
+            self.model = build_student_for(cfg, generator=gen)
         if params is not None:
             self.model.load_state_dict(
                 student_state_dict(params, batch_stats or {}))
@@ -108,17 +137,52 @@ class GroundingPipeline:
                 "geometry; raise brick_capacities", self.last_dropped)
         return out
 
+    @torch.no_grad()
+    def _forward_pillars(self, vox, in_feats: np.ndarray) -> torch.Tensor:
+        """One scene through the pillar student: host topology at the
+        frozen static shapes, fitted on this scene if none are set. An
+        empty scene gives zero features and freezes nothing."""
+        if not vox.mask.any():
+            self.last_dropped = 0
+            return torch.zeros((self.capacity, self.model.final.kernel
+                                .shape[-1]), device=self.device)
+        if self.pillar_caps is None or self.pillar_z0 is None:
+            z0, caps = fit_pillar_shapes([build_pillar_topology(
+                vox.coords, vox.mask, device="cpu")])
+            if self.pillar_z0 is None:
+                self.pillar_z0 = z0
+            if self.pillar_caps is None:
+                self.pillar_caps = caps
+        topo = build_pillar_topology(vox.coords, vox.mask, z0=self.pillar_z0,
+                                     site_capacities=self.pillar_caps,
+                                     device=self.device)
+        out = self.model(topo, torch.as_tensor(in_feats, device=self.device))
+        self.forwards += 1
+        self.last_dropped = topo.dropped
+        if self.last_dropped:
+            logging.getLogger("dropclip").warning(
+                "GroundingPipeline[pillars]: %d pillar sites dropped (site "
+                "capacity overflow) — raise pillar_site_capacities",
+                self.last_dropped)
+        return out
+
     def featurize(self, xyz: np.ndarray, rgb: Optional[np.ndarray] = None
                   ) -> Tuple[torch.Tensor, np.ndarray, Any]:
         """(N, 3) points (+ optional (N, 3) colors in [0, 1]) -> (per-voxel
         features (cap, C) on the device, voxel validity (cap,), vox record
         with the inverse map back to input points)."""
         vox, in_feats = self._host_voxelize(xyz, rgb)
+        if self.engine == "pillars":
+            return self._forward_pillars(vox, in_feats), vox.mask, vox
         out = self._forward(vox.coords[None], vox.mask[None], in_feats[None])
         return out[0], vox.mask, vox
 
     def _host_voxelize(self, xyz: np.ndarray, rgb: Optional[np.ndarray]):
         xyz = np.asarray(xyz, np.float32)
+        if not len(xyz):  # an empty cloud: no voxel, zero features
+            return (sparse_quantize_np(xyz, self.voxel_size, self.capacity),
+                    np.zeros((self.capacity, 6 if self.use_color else 3),
+                             np.float32))
         centered = xyz - xyz.mean(axis=0)
         vox = sparse_quantize_np(centered, self.voxel_size, self.capacity)
         pos = centered[vox.unique_idx] * vox.mask[:, None]
@@ -153,7 +217,12 @@ class GroundingPipeline:
         """Throughput serving: B scenes x shared queries, one folded
         student forward. Returns (masks, sims): lists of per-scene (Q, N_i)
         masks and (B, Q, cap) sims when ``per_point``, else (B, Q, cap)
-        arrays for both."""
+        arrays for both. The brick engine only: the pillar engine serves
+        one scene per ``ground`` call."""
+        if self.engine == "pillars":
+            raise ValueError(
+                "ground_batch runs the batched brick program; the pillar "
+                "engine serves per scene — call ground() per cloud")
         b = len(clouds)
         rgbs = rgbs if rgbs is not None else [None] * b
         voxes, feats_in = zip(*[self._host_voxelize(x, r)

@@ -1,8 +1,8 @@
 """Shared MinkUNet pieces: architecture table, init, masked batch norm.
 
-Port of the parts of ``dropclip_tpu/sparse/unet.py`` the brick engine
-uses (reference architecture: models/distil/minkunet.py:30-263). The
-gather-engine ``MinkUNet`` itself waits for a later slice.
+Port of the parts of ``dropclip_tpu/sparse/unet.py`` the brick and pillar
+engines use (reference architecture: models/distil/minkunet.py:30-263).
+The gather-engine ``MinkUNet`` itself waits for a later slice.
 """
 
 from __future__ import annotations
@@ -23,6 +23,14 @@ def _kaiming_fan_out(shape: Sequence[int],
     fan_out = shape[0] * shape[-1]
     std = (2.0 / fan_out) ** 0.5
     return std * torch.randn(tuple(shape), generator=generator, dtype=dtype)
+
+
+class ConvKernel(nn.Module):
+    """A sparse conv holding one (K, Cin, Cout) ``kernel`` parameter."""
+
+    def __init__(self, taps: int, cin: int, cout: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(taps, cin, cout))
 
 
 class MaskedBatchNorm(nn.Module):
@@ -48,6 +56,24 @@ class MaskedBatchNorm(nn.Module):
             self.var.to(x.dtype) + self.eps)
         y = y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
         return y * mask[..., None].to(x.dtype)
+
+
+def reset_student_parameters(model: nn.Module,
+                             generator: Optional[torch.Generator] = None
+                             ) -> None:
+    """Seeded student init: kaiming fan-out conv kernels (drawn on the CPU
+    in module order, so engines that register the same modules in the same
+    order draw the same weights), unit BN scale/var, zero BN bias/mean."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, ConvKernel):
+                mod.kernel.copy_(_kaiming_fan_out(tuple(mod.kernel.shape),
+                                                  generator))
+            elif isinstance(mod, MaskedBatchNorm):
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
+                mod.mean.zero_()
+                mod.var.fill_(1.0)
 
 
 # name -> (block, LAYERS, PLANES) — reference minkunet.py:197-263

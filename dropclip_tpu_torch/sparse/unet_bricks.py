@@ -26,18 +26,11 @@ from ..kernels.brick_conv3 import brick_conv3
 from .bricks import (BrickLevel, BrickTopology, brick_conv, brick_down_conv,
                      brick_up_conv, fold_topology, gather_points,
                      scatter_points)
-from .unet import UNET_ARCHS, MaskedBatchNorm, _kaiming_fan_out
+from .unet import (UNET_ARCHS, ConvKernel, MaskedBatchNorm,
+                   reset_student_parameters)
 
 
-class _Kernel(nn.Module):
-    """A conv holding one (K, Cin, Cout) ``kernel`` parameter."""
-
-    def __init__(self, taps: int, cin: int, cout: int):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(taps, cin, cout))
-
-
-class BConv(_Kernel):
+class BConv(ConvKernel):
     """Stride-1 submanifold conv; ksize 3 runs K1."""
 
     def __init__(self, cin: int, cout: int, ksize: int = 3):
@@ -51,7 +44,7 @@ class BConv(_Kernel):
         return brick_conv(x, level, w, ksize=self.ksize)
 
 
-class BConvDown(_Kernel):
+class BConvDown(ConvKernel):
     def __init__(self, cin: int, cout: int):
         super().__init__(8, cin, cout)
 
@@ -60,7 +53,7 @@ class BConvDown(_Kernel):
                                self.kernel.to(x.dtype))
 
 
-class BConvUp(_Kernel):
+class BConvUp(ConvKernel):
     def __init__(self, cin: int, cout: int):
         super().__init__(8, cin, cout)
 
@@ -69,7 +62,7 @@ class BConvUp(_Kernel):
                              self.kernel.to(x.dtype))
 
 
-class BConv1x1(_Kernel):
+class BConv1x1(ConvKernel):
     def __init__(self, cin: int, cout: int):
         super().__init__(1, cin, cout)
 
@@ -175,20 +168,6 @@ class MinkUNetBricks(nn.Module):
             x = getattr(self, f"{name}_{i}")(x, level)
         return x
 
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Seeded init: kaiming fan-out conv kernels (drawn on the CPU in
-        module order), unit BN scale/var, zero BN bias/mean."""
-        with torch.no_grad():
-            for mod in self.modules():
-                if isinstance(mod, _Kernel):
-                    mod.kernel.copy_(_kaiming_fan_out(tuple(mod.kernel.shape),
-                                                      generator))
-                elif isinstance(mod, MaskedBatchNorm):
-                    mod.scale.fill_(1.0)
-                    mod.bias.zero_()
-                    mod.mean.zero_()
-                    mod.var.fill_(1.0)
-
     def forward(self, topo: BrickTopology, x: torch.Tensor):
         bsz, m = x.shape[0], x.shape[1]
         cap0 = topo.levels[0].occ.shape[1]
@@ -250,5 +229,5 @@ def build_student_bricks(cfg: Any, in_channels: Optional[int] = None,
         init_dim=int(cfg.init_dim or 32),
         use_cls_head=bool(cfg.use_cls_head),
         n_classes=int(cfg.n_classes or 0))
-    model.reset_parameters(generator)
+    reset_student_parameters(model, generator)
     return model.eval()

@@ -1,7 +1,8 @@
 """dropclip_tpu_torch imports with none of jax, flax, the JAX package,
 regex, yaml, h5py or triton available (the card's machine has only torch,
 triton, numpy, scipy, einops, pytest and hypothesis), and its entry points
-(serve pipeline, text encoder, CLIP, ingest staging) refuse to run without
+(serve pipeline on either engine, pillar topology, text encoder, CLIP,
+ingest staging) refuse to run without
 a card unless asked for the CPU."""
 
 import os
@@ -30,11 +31,15 @@ from dropclip_tpu_torch.pipeline import GroundingPipeline, make_clip_sim
 cfg = CfgNode(dict(arch_3d="tiny", feat_dim=8, voxel_capacity=64,
                    sparse_backend="bricks", clip_checkpoint="random",
                    clip_model="tiny-test"))
+pcfg = CfgNode(dict(cfg, sparse_backend="pillars"))
+from dropclip_tpu_torch.sparse.pillar_topology import build_pillar_topology
 from dropclip_tpu_torch.teachers.clip import build_clip
 from dropclip_tpu_torch.tools.preprocess_data import stage_scene
 import numpy as np
 z = np.zeros((1, 4, 4), np.float32)
-for make in (lambda: GroundingPipeline(cfg), lambda: make_clip_sim(cfg),
+for make in (lambda: GroundingPipeline(cfg), lambda: GroundingPipeline(pcfg),
+             lambda: build_pillar_topology(np.zeros((4, 3)), np.ones(4)),
+             lambda: make_clip_sim(cfg),
              lambda: build_clip("tiny-test"),
              lambda: stage_scene(z[..., None].repeat(3, -1), z, z, np.eye(4),
                                  np.eye(3))):
@@ -46,6 +51,7 @@ for make in (lambda: GroundingPipeline(cfg), lambda: make_clip_sim(cfg),
         raise AssertionError("entry point ran without a card")
 GroundingPipeline(cfg, clip_sim=make_clip_sim(cfg, device="cpu"),
                   device="cpu")
+GroundingPipeline(pcfg, device="cpu")
 build_clip("tiny-test", device="cpu")
 print("OK", len(mods))
 """
@@ -56,7 +62,7 @@ def test_imports_without_jax_yaml_regex_triton():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 34  # every module of the package was imported
+    assert n >= 43  # every module of the package was imported
 
 
 def test_no_forbidden_imports_in_sources():

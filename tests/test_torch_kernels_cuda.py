@@ -1,5 +1,6 @@
 """The port's hand-written kernels against their plain PyTorch versions on
-the card: K1 (``kernels/brick_conv3.py``, CUDA C++), K3, K4 and K5
+the card: K1 (``kernels/brick_conv3.py``, CUDA C++), K2
+(``kernels/pillar_conv3.py``, CUDA C++), K3, K4 and K5
 (``ops/attention.py`` over ``csrc/attention.cu``, CUDA C++), and K6 and K7
 (``ops/layernorm.py``, Triton).
 
@@ -15,14 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from dropclip_tpu_torch.data.synthetic import make_tabletop_coords
+from dropclip_tpu_torch.data.synthetic import (make_tabletop_coords,
+                                               make_volumetric_coords)
 from dropclip_tpu_torch.kernels.brick_conv3 import (brick_conv3,
                                                     brick_conv3_plain)
+from dropclip_tpu_torch.kernels.pillar_conv3 import (pillar_conv3,
+                                                     pillar_conv3_plain)
 from dropclip_tpu_torch.ops import attention as att
 from dropclip_tpu_torch.ops.layernorm import (add_layer_norm,
                                               add_layer_norm_plain,
                                               layer_norm, layer_norm_plain)
 from dropclip_tpu_torch.sparse import bricks
+from dropclip_tpu_torch.sparse.pillar_topology import build_pillar_topology
 
 pytestmark = pytest.mark.cuda
 
@@ -295,3 +300,153 @@ def test_k7_matches_plain(cuda, rows, c, dtype):
         ref = ref_y.float()
         ulp = _bf16_ulp(ref.abs().clamp_min(2.0 ** -10))
         assert bool(((got_y.float() - ref).abs() <= ulp).all())
+
+
+def _pillar_level(level, seed=0, z_shift=-5):
+    """One level of a volumetric scene's pillar topology, on the card."""
+    coords, mask = make_volumetric_coords(np.random.RandomState(seed), 1,
+                                          2048, n_occ=1500, ext=12, zext=24)
+    coords = coords[0] + np.array([0, 0, z_shift], np.int32) * mask[0, :,
+                                                                    None]
+    return build_pillar_topology(coords, mask[0], device="cuda"
+                                 ).levels[level]
+
+
+def _k2_args(lv, c, cout, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p, z = lv.occ.shape
+    x = (torch.randn((p, z, c), generator=gen, device="cuda")
+         * lv.occ[..., None]).to(dtype)
+    w = (torch.randn((9, 3, c, cout), generator=gen, device="cuda")
+         * (2.0 / (27 * cout)) ** 0.5).to(dtype)
+    scale = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(cout, generator=gen, device="cuda")
+    return [x, lv.nbr9, w, lv.occ, scale, bias]
+
+
+def _k2_close(got, ref, dtype):
+    """float32 (TF32 off): rtol 1e-4 plus atol 1e-4 * max|ref|, the
+    summation order of 27*C terms; bf16 inputs with f32 accumulation:
+    1e-2 of max|ref| (one bf16 rounding of the output)."""
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    assert scale > 0
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        assert float((got - ref).abs().max()) <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("level,c,cout", [(0, 416, 384), (0, 3, 200),
+                                          (1, 32, 32), (2, 24, 40),
+                                          (3, 256, 256)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_k2_matches_plain(cuda, level, c, cout, relu):
+    """A volumetric scene whose z range starts off the 16-voxel lattice,
+    asymmetric random weights, random scale and bias: every Z the levels
+    give (32 down to 4), float32 and bf16."""
+    lv = _pillar_level(level)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _k2_args(lv, c, cout, dtype, seed=level * 7 + c)
+        before = pillar_conv3.launches
+        got = pillar_conv3(*args, relu=relu)
+        ref = pillar_conv3_plain(*args, relu=relu)
+        torch.cuda.synchronize()
+        assert pillar_conv3.launches == before + 1 and got.dtype == dtype
+        _k2_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("z", [1, 5, 24, 40])
+def test_k2_random_occupancy_and_odd_z(cuda, z):
+    """occ drawn at random (the kernel computes exactly the slots it is
+    given), features not masked, Z not a multiple of 8."""
+    gen = torch.Generator(device="cuda").manual_seed(z)
+    p, c, cout = 37, 20, 136
+    x = torch.randn((p, z, c), generator=gen, device=cuda)
+    nbr = torch.randint(-2, p + 3, (p, 9), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    nbr[:, 4] = torch.arange(p, device=cuda, dtype=torch.int32)
+    occ = torch.rand((p, z), generator=gen, device=cuda) < 0.4
+    w = torch.randn((9, 3, c, cout), generator=gen, device=cuda) * 0.1
+    s = torch.rand(cout, generator=gen, device=cuda) + 0.5
+    b = torch.randn(cout, generator=gen, device=cuda) * 0.1
+    got = pillar_conv3(x, nbr, w, occ, s, b, relu=True)
+    ref = pillar_conv3_plain(x, nbr, w, occ, s, b, relu=True)
+    _k2_close(got, ref, torch.float32)
+    assert bool((got[~occ] == 0).all())
+
+
+def test_k2_z_ends_and_misses_read_zeros(cuda):
+    """z - 1 at z = 0 is not the previous pillar's last slot, and rows
+    outside [0, P) are never read: a column whose neighbours are all
+    misses equals the centre column's three z taps alone."""
+    p, z, c, cout = 6, 8, 16, 8
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((p, z, c), generator=gen, device=cuda) + 3.0
+    w = torch.randn((9, 3, c, cout), generator=gen, device=cuda)
+    nbr = torch.full((p, 9), p, device=cuda, dtype=torch.int32)
+    nbr[:, 4] = torch.arange(p, device=cuda, dtype=torch.int32)
+    nbr[1, :4] = -1
+    nbr[2, 5:] = 2 ** 30
+    occ = torch.ones((p, z), dtype=torch.bool, device=cuda)
+    ones, zeros = torch.ones(cout, device=cuda), torch.zeros(cout,
+                                                             device=cuda)
+    got = pillar_conv3(x, nbr, w, occ, ones, zeros, relu=False)
+    up = torch.nn.functional.pad(x[:, :-1], (0, 0, 1, 0))
+    dn = torch.nn.functional.pad(x[:, 1:], (0, 0, 0, 1))
+    ref = up @ w[4, 0] + x @ w[4, 1] + dn @ w[4, 2]
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+def test_k2_limit_sees_swapped_z_taps(cuda):
+    """A planted fault, the dz = -1 and dz = +1 taps swapped, fails the
+    limits that the kernel passes."""
+    lv = _pillar_level(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _k2_args(lv, 64, 64, dtype, seed=11)
+        ref = pillar_conv3_plain(*args, relu=False)
+        _k2_close(pillar_conv3(*args, relu=False), ref, dtype)
+        bad = list(args)
+        bad[2] = args[2].flip(1).contiguous()
+        with pytest.raises(AssertionError):
+            _k2_close(pillar_conv3(*bad, relu=False), ref, dtype)
+
+
+def test_k2_wrapper_raises_on_what_it_does_not_take(cuda):
+    x = torch.zeros((4, 8, 16), device=cuda)
+    nbr = torch.zeros((4, 9), dtype=torch.int32, device=cuda)
+    w = torch.zeros((9, 3, 16, 8), device=cuda)
+    occ = torch.ones((4, 8), dtype=torch.bool, device=cuda)
+    s, b = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        pillar_conv3(x.half(), nbr, w.half(), occ, s, b)
+    with pytest.raises(ValueError):
+        pillar_conv3(x, nbr.cpu(), w, occ, s, b)
+    with pytest.raises(ValueError):
+        pillar_conv3(x.transpose(0, 1).contiguous().transpose(0, 1), nbr,
+                     w, occ, s, b)
+
+
+def test_pillar_student_on_the_card_matches_cpu(cuda):
+    """The tiny pillar student on the card runs K2 16 times per forward
+    and matches the same weights on the CPU within 1e-4 of max|ref|."""
+    from dropclip_tpu_torch.core.config import CfgNode
+    from dropclip_tpu_torch.sparse.unet_pillars import build_student_pillars
+
+    coords, mask = make_volumetric_coords(np.random.RandomState(3), 1, 1024,
+                                          n_occ=700, ext=10, zext=20)
+    cfg = CfgNode(dict(arch_3d="tiny", feat_dim=16, use_color=True))
+    feats = torch.randn((1024, 6), generator=torch.Generator().manual_seed(
+        0)) * torch.as_tensor(mask[0])[:, None]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        model = build_student_pillars(
+            cfg, generator=torch.Generator().manual_seed(1)).to(dev)
+        topo = build_pillar_topology(coords[0], mask[0], device=dev)
+        before = pillar_conv3.launches
+        with torch.no_grad():
+            outs.append(model(topo, feats.to(dev)).cpu())
+        assert pillar_conv3.launches - before == (16 if dev == "cuda" else 0)
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4 * float(
+        outs[1].abs().max())

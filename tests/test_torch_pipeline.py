@@ -135,3 +135,78 @@ def test_featurize_shapes_and_padding(pipes, rng):
     assert tuple(feats.shape) == (128, 16) and feats.device.type == "cpu"
     assert 10 < vmask.sum() < 128
     assert float(feats[torch.as_tensor(~vmask)].abs().max()) == 0.0
+
+
+def _volumetric_cloud(seed, n_occ=90):
+    """A bin-like cloud: make_volumetric_coords voxels at 5 cm, one
+    jittered point per voxel plus a second for half of them."""
+    from dropclip_tpu_torch.data.synthetic import make_volumetric_coords
+
+    rng = np.random.RandomState(seed)
+    coords, mask = make_volumetric_coords(rng, 1, 128, n_occ=n_occ, ext=7,
+                                          zext=12)
+    c = coords[0][mask[0]].astype(np.float32)
+    c = np.concatenate([c, c[: len(c) // 2]])
+    xyz = ((c + rng.rand(*c.shape)) * 0.05).astype(np.float32)
+    return xyz, rng.rand(len(xyz), 3).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def pillar_pipes(pipes):
+    jpipe, tpipe = pipes
+    np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    jp = JPipe(JCfg(dict(CFG)), jpipe.variables["params"],
+               jpipe.variables["batch_stats"], jpipe.clip_sim,
+               engine="pillars")
+    tp = GroundingPipeline(
+        CfgNode(dict(CFG, sparse_backend="pillars")),
+        np_tree(jpipe.variables["params"]),
+        np_tree(jpipe.variables["batch_stats"]), tpipe.clip_sim,
+        device="cpu")
+    assert tp.engine == "pillars"
+    return jp, tp
+
+
+def test_pillar_ground_matches_jax(pillar_pipes):
+    """engine="pillars" against the JAX pipeline's: sims within 1e-5,
+    masks equal away from the threshold; the second cloud replays the
+    static shapes fitted on the first, as in JAX."""
+    jp, tp = pillar_pipes
+    shapes = None
+    for seed in (11, 12):
+        xyz, rgb = _volumetric_cloud(seed)
+        vm_j, vs_j = jp.ground(xyz, rgb, QUERIES, per_point=False)
+        vm_t, vs_t = tp.ground(xyz, rgb, QUERIES, per_point=False)
+        assert tp.last_dropped == jp.last_dropped == 0
+        assert (tp.pillar_z0, tp.pillar_caps) == (jp._pillar_z0,
+                                                  jp._pillar_caps)
+        shapes = shapes or (tp.pillar_z0, list(tp.pillar_caps))
+        assert (tp.pillar_z0, tp.pillar_caps) == shapes
+        np.testing.assert_allclose(vs_t, np.asarray(vs_j), atol=1e-5,
+                                   rtol=0)
+        near = np.abs(np.asarray(vs_j) - 0.6) < 1e-5
+        np.testing.assert_array_equal(vm_t[~near], np.asarray(vm_j)[~near])
+        m_j, _ = jp.ground(xyz, rgb, QUERIES)
+        m_t, _ = tp.ground(xyz, rgb, QUERIES)
+        far_pts = ~near[:, np.maximum(
+            tp._host_voxelize(xyz, rgb)[0].inverse_map, 0)]
+        np.testing.assert_array_equal(m_t[far_pts], np.asarray(m_j)[far_pts])
+    assert tp.forwards == 4
+
+
+def test_pillar_engine_refusals_and_empty_cloud(pillar_pipes):
+    """ground_batch refuses the pillar engine, as in JAX; an empty cloud
+    gives empty masks (the JAX builder asserts); a cloud taller than the
+    frozen pillar_z0 raises a ValueError that names it."""
+    _, tp = pillar_pipes
+    xyz, rgb = _volumetric_cloud(13)
+    with pytest.raises(ValueError, match="per scene"):
+        tp.ground_batch([xyz], [rgb], QUERIES)
+    masks, _ = tp.ground(np.zeros((0, 3), np.float32), None, QUERIES)
+    assert masks.shape == (2, 0)
+    vm, _ = tp.ground(xyz[:1] * 0, None, QUERIES[:1], per_point=False)
+    assert vm.shape == (1, 128)
+    tall = np.concatenate([xyz, xyz[:4] + np.array([0, 0, 5.0],
+                                                   np.float32)])
+    with pytest.raises(ValueError, match="pillar_z0"):
+        tp.ground(tall, None, QUERIES)
