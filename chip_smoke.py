@@ -7,7 +7,8 @@
    kernel from this checkout side by side: the CUDA sources with nvcc into
    ``build/kernels/`` (K1 ``csrc/brick_conv3.cu``; K2
    ``csrc/pillar_conv3.cu``; K3, K4 and K5 ``csrc/attention.cu``) and the
-   Triton kernels K6 and K7 by a first launch;
+   Triton kernels K6 and K7 by a first launch; prints ptxas' registers
+   and spills per entry function (attention v3 must not spill);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes its paths give it (K1: the 16 k3 convs of MinkUNet14D at batch 8
    in float32 with TF32 off and in bf16; K6: the text tower's (Q*77, 768)
@@ -17,7 +18,8 @@
    the float32 instance as extra rows; K7: the teacher's (96*769, 1024)
    bf16 rows), and times kernel, plain version, a library yardstick the
    port never calls, and the card's bound; the attention limit is checked
-   against a planted fault (the last key dropped);
+   against a planted fault (the last key dropped), and the wgmma
+   descriptors of attention v3 against a float32 product (self-test);
 3. serve path: full-width requests (configs/DistilBlender.yaml:
    MinkUNet14D, 768-d out, 8192 voxels, (4, 4, 2) bricks; ViT-L/14@336px
    text tower in bf16; weights drawn from a seed) through
@@ -43,7 +45,8 @@
    K6 3 per 96-crop chunk (plus 25 for the text queries); one chunk
    forward with ``DROPCLIP_PACKED_ATTN=0`` (K4) and the teacher at a
    doubled input (K5); three reduced scenes on the card against the CPU,
-   with planted faults that the limits must see; a profile of one scene;
+   with planted faults that the limits must see; a profile of one scene,
+   whose attention launches must all be v3's;
 6. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +57,7 @@ number goes to ``chiprun_out/chip_smoke_report.json``.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,6 +144,20 @@ def build_kernels():
             times[f"{name}.cu (nvcc)"] = fut.result()
     layer_norm.launches = add_layer_norm.launches = 0
     return times, {name: lib.build_log for name, lib in LIBRARIES.items()}
+
+
+def ptxas_entries(log):
+    """{entry function (mangled): [ptxas register and spill lines]} from
+    an ``nvcc -Xptxas -v`` log."""
+    entries, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = entries.setdefault(m.group(1), [])
+        elif cur is not None and ("registers" in line or "spill" in line):
+            cur.append(line.strip())
+    return entries
 
 
 def bf16_ulps(err, ref_max):
@@ -776,6 +794,12 @@ def pillar_vs_brick_phase(cfg, ppipe, clouds, rgbs, report):
 
 
 ATTN_ULPS = 1  # bf16 limit, in ulps of max|ref|
+# the designs of the attention kernel's instances (csrc/attention.cu)
+ATTN_DESIGNS = {"v3": "v3 wgmma, stage C(i) and the softmax cut: S = Q.K^T "
+                      "(SS) and O += P.V (RS) on wgmma.m64n64k16, n16 last "
+                      "key tile, one fma into ex2.approx.ftz per "
+                      "probability, cp.async double buffer",
+                "f32": "float32 instance on the CUDA cores"}
 
 
 def dropped_key_control(q, k, v, causal):
@@ -809,7 +833,19 @@ def attention_phase(report):
     only."""
     import torch.nn.functional as F
 
+    from dropclip_tpu_torch.kernels.attention import instance, wgmma_selftest
     from dropclip_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    a, b = (torch.randn((64, 64), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    ref = a.float() @ b.float().T
+    for mode, bm in ((0, b), (1, b.T.contiguous())):
+        err = float((wgmma_selftest(a, bm, mode) - ref).abs().max())
+        print(f"wgmma descriptor self-test, mode {mode}: max err {err} "
+              f"(max|ref| {float(ref.abs().max())})", flush=True)
+        check(err <= 1e-5 * float(ref.abs().max()),
+              f"wgmma descriptor self-test, mode {mode}: {err}")
 
     cases = [("K3", 96, 769, 16, False, torch.bfloat16),
              ("K4", 96, 769, 16, False, torch.bfloat16),
@@ -876,7 +912,8 @@ def attention_phase(report):
                    library_ms=cuda_ms(library, 10),
                    bound_ms=max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
                    bound_by="operations" if flops / peak > nbytes / PEAK_BYTES
-                   else "bytes", gflop=flops / 1e9)
+                   else "bytes", gflop=flops / 1e9,
+                   design=ATTN_DESIGNS[instance(dtype, 64)])
         if dtype == torch.bfloat16:
             row["control_bf16_ulps"] = ctrl_ulps
         row["tflops"] = flops / row["ms"] / 1e9
@@ -894,7 +931,7 @@ def attention_phase(report):
     att.oneshot_attention.launches = 0
     att.flash_attention_padded.launches = 0
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")
+            "bound_by", "design", "tflops")
     return {tag: {k: out[tag][k] for k in keys} for tag in ("K3", "K4", "K5")}
 
 
@@ -1253,6 +1290,13 @@ def ingest_profile_phase(extractor, scene, report):
         mine[tag] = dict(launches=sum(e.count for e in ev),
                          device_ms=sum(e.self_device_time_total
                                        for e in ev) / 1e3)
+    # the teacher's bf16 attention at D = 64 runs v3 and nothing else
+    v3 = sum(e.count for e in kernels if "attention_kernel_v3" in e.key)
+    mine["K3/K4/K5"]["v3_launches"] = v3
+    want = report["ingest"]["launches"]["K3"]  # the same scene's count
+    check(v3 == mine["K3/K4/K5"]["launches"] == want,
+          f"ingest attention launches: {mine['K3/K4/K5']['launches']}, of "
+          f"them v3 {v3} (want {want}, all v3)")
     report.setdefault("profile", {})["ingest"] = dict(
         wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
         top=[dict(kernel=e.key, calls=e.count,
@@ -1297,9 +1341,17 @@ def main():
     print("built " + ", ".join(f"{k} in {v:.2f} s" for k, v in
                                times.items()), flush=True)
     for name, log in ptxas.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+        for fn, lines in ptxas_entries(log).items():
+            short = re.sub(r"^_ZN.*_cu_[0-9a-f]{8}\d*", "", fn)[:48]
+            print(f"  ptxas {name} {short}: {'; '.join(lines)}", flush=True)
+        for line in log.splitlines():  # ptxas' notes on wgmma, if any
+            if "GMMA" in line or "wgmma" in line:
+                print(f"  ptxas {name}: {line.strip()[:160]}", flush=True)
+    v3 = [lines for fn, lines in ptxas_entries(ptxas["attention"]).items()
+          if "attention_kernel_v3" in fn]
+    check(len(v3) == 1 and any("0 bytes spill stores, 0 bytes spill loads"
+                               in line for line in v3[0]),
+          f"attention v3 spills registers or was not built: {v3}")
 
     cfg = load_cfg(os.path.join(ROOT, "configs", "DistilBlender.yaml"))
     cfg.clip_checkpoint = "random"

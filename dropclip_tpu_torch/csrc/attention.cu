@@ -8,22 +8,27 @@
 //   K5 flash_attention_padded (the library's TPU flash kernel): (B, T, H, D)
 //      with an optional causal mask and any T.
 // A contiguous (B, T, H, D) tensor has the memory layout of a packed
-// (B, T, H*D) one, so all three are this one kernel: token t of head h
+// (B, T, H*D) one, so all three are this one source: token t of head h
 // starts at element (b*T + t)*H*D + h*D. The TPU needed two kernels only
 // because of the transposes XLA put around the per-head one.
 //
-// Numerics follow the TPU body: logits s = q.k in float32, then
-// exp2(s * scale*log2(e) - m) with keys past T (and, if causal, past the
-// query) masked to -inf; the unnormalised probabilities are rounded to the
-// input type before the P.V product, which accumulates in float32, and the
-// (T, D) output is divided by the float32 row sum. Unlike the TPU body the
-// row maximum m is a running one (online softmax): each new key tile
-// rescales the running sum and output by exp2(m_old - m_new). That rounds
-// the probabilities against another maximum, so results differ from the
-// one-pass order by a few bf16 ulps; chip_smoke.py and the cuda tests
-// state the tolerance. Key and value rows past T are loaded as zeros, so
-// nothing past the tensor is read and 0 * Inf cannot leak; query rows past
-// T are computed on zeros and never written.
+// Three instances, chosen by the wrapper (kernels/attention.py) from the
+// type and the head dim: v3 (bf16, D = 64, every shape the port's paths
+// run), v2 (bf16, D = 16 and 32) and a float32 instance.
+//
+// Numerics, the same in all three and those of the TPU body: logits
+// s = q.k in float32, then exp2(s * scale*log2(e) - m) with keys past T
+// (and, if causal, past the query) masked to -inf; the unnormalised
+// probabilities are rounded to the input type before the P.V product,
+// which accumulates in float32, and the (T, D) output is divided by the
+// float32 row sum. Unlike the TPU body the row maximum m is a running one
+// (online softmax): each new key tile rescales the running sum and output
+// by exp2(m_old - m_new). That rounds the probabilities against another
+// maximum, so results differ from the one-pass order by a few bf16 ulps;
+// chip_smoke.py and the cuda tests state the tolerance. Key and value rows
+// past T are loaded as zeros, so nothing past the tensor is read and
+// 0 * Inf cannot leak; query rows past T are computed on zeros and never
+// written.
 //
 // Bound. At the ViT-L teacher's shape (B=96, T=769, H=16, D=64, bf16) one
 // call does 4*B*H*T^2*D = 232.5 GFLOP in the two matmuls and must move
@@ -31,19 +36,48 @@
 // against 0.18 ms at 3.35 TB/s, so it is bound by operations. No (T, T)
 // matrix goes to device memory.
 //
-// Design. 128 threads: each of 4 warps owns 16 query rows of the tile. The
-// Q tile is staged once in shared memory and kept in registers as mma A
-// fragments. K and V tiles stream through a two-stage ring in shared
-// memory with cp.async (16-byte copies, zero-filled past T), so tile kt+1
-// loads while tile kt computes. S = Q.K^T and O += P.V run as bf16
-// mma.sync.m16n8k16 with float32 accumulators; their B fragments come from
-// ldmatrix (K as stored, V transposed by ldmatrix.trans, so V is copied
-// as it lies in memory), and the S accumulators become the P.V A fragments
-// in registers (the m16n8 accumulator and the m16n8k16 A operand line up),
-// so P never touches shared memory. Rows are padded by 16 bytes, which
-// makes the ldmatrix row reads conflict-free. Tiles that need no mask skip
-// the masking pass. Not used yet: TMA, wgmma, warp specialisation. A
-// float32 instance on the CUDA cores follows at the end of the file.
+// v3 (bf16, D = 64) replaces v2 at that type and head dim, which are all
+// the port's paths run (ViT-L/14@336px vision 1024/16, DINO 384/6, text
+// 768/12). v2 ran 1.2448 ms at the teacher's shape (187 TFLOP/s, 5.3x the
+// bound) against 0.7978 ms for F.scaled_dot_product_attention, K5 at
+// (8, 3073, 16, 64) 1.4227 ms (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// What held v2 back: the legacy mma.sync path, each warp reading whole K
+// and V tiles from shared memory by ldmatrix, and the one-key 13th key
+// tile at T = 769 computed in full. Design:
+// - one warpgroup (128 threads) per (batch, head, 64-row query tile),
+//   v2's grid. Q, K and V tiles are 64 rows of exactly 128 bytes, staged
+//   by cp.async (16-byte copies, zero-filled past T) into the 128-byte
+//   swizzle that wgmma reads, each tile on a 1024-byte boundary;
+// - S = Q.K^T is four wgmma.m64n64k16 k-steps with both operands in
+//   shared memory (K-major). The accumulator of each warp has the
+//   mma.sync m16n8 C layout, so the online softmax runs on it in
+//   registers, and the probabilities, packed to bf16, are the register A
+//   operand of O += P.V (the RS form, four k-steps over the keys), whose
+//   B is the V tile as it lies in memory (MN-major, the same swizzle);
+// - the softmax, not the tensor cores, bounds a 64 x 64 tile step: per
+//   element it costs about as much on the FP32 and special-function pipes
+//   as the two products do on the tensor cores. So the maximum is taken on
+//   the raw logits, exp2(s * scale - m) is one fma into ex2.approx.ftz,
+//   and a warp rescales O only when a row maximum of its 16 rows moved;
+// - a ragged last key tile of at most 16 keys runs at n16 and one P.V
+//   k-step (T = 769: 784 keys of work instead of 832);
+// - K and V stream through a two-stage ring, so tile kt+1 loads while
+//   tile kt computes, with one barrier per tile; after each cp.async
+//   wait, fence.proxy.async makes the copies visible to wgmma's async
+//   proxy before the barrier. 41 KB of shared memory and 90 registers
+//   let five blocks share an SM, so one block's softmax overlaps the
+//   others' products.
+// Not used: TMA, mbarriers, warp specialisation, a persistent grid. Two
+// variants were measured slower and are not kept (PERF.md, Findings): two
+// warpgroups per 128-row block sharing each K/V tile on a 3-stage ring
+// (98 registers: two blocks per SM, both warpgroups in lockstep), and
+// the next tile's S issued with this tile's P.V, its softmax run under
+// wgmma.wait_group 1 (106 registers, four blocks per SM, fences that
+// ptxas inserts around the register operands).
+//
+// v2 (bf16, D = 16 and 32) runs both products on mma.sync from padded
+// tiles (ldmatrix), one warp per 16 query rows. The float32 instance
+// runs on the CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,6 +142,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// v2: the bf16 instance at D = 16 and 32
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const __nv_bfloat16* __restrict__ q,
@@ -285,6 +320,363 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- v3: the bf16 instance at D = 64, on wgmma ----------------------------
+
+constexpr int kTile = 64 * 128;  // one 64 x 64 bf16 tile: 64 rows of 128 bytes
+
+// The 128-byte swizzle of wgmma: 16-byte chunk c of row r lies at chunk
+// c ^ (r & 7). The hardware takes r from address bits 7-9, so every tile
+// starts on a 1024-byte boundary.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// Shared-memory matrix descriptor of a 128B-swizzled tile: start address,
+// leading and stride byte offsets (both 1024 bytes, the step between 8-row
+// groups; for K-major operands and 64-wide MN-major ones the hardware
+// reads only the stride offset) and the swizzle mode. Each field counts
+// 16-byte units, so adding n to the descriptor moves its start n*16 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) |
+         ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// makes cp.async's (generic proxy) writes visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of r across this point:
+// wgmma writes its accumulators (and reads its A registers) after its
+// asm statement has returned, until wgmma_wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+#define V3_D32                                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+#define V3_R32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (64 x 64, f32) += A (64 x 16) B (16 x 64): A and B K-major in shared
+// memory (SS). Per warp w of the warpgroup, d holds rows 16w..16w+15 in
+// the mma.sync m16n8 C layout: d[4j + e] is row g + 8*(e/2), column
+// 8j + 2*tg + e%2 (g = lane/4, tg = lane%4).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " V3_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : V3_D32
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+// d (64 x 16) += A (64 x 16) B (16 x 16), both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+// the same with A in registers (RS; the mma.sync m16n8k16 A fragment of
+// the warp's 16 rows) and B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " V3_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : V3_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+// One key tile of v3 for one warpgroup: S = Q K^T on wgmma, the online
+// softmax on its accumulators, O += P V on wgmma. NB 8-key slices: 8 for a
+// tile of 64 keys, 2 for a last tile that holds at most 16 (n16 for S, one
+// k-step for P V); the keys past T in it are masked.
+template <int NB>
+__device__ __forceinline__ void v3_tile(float (&acc)[32], float (&m_run)[2],
+                                        float (&l_run)[2], uint64_t dq,
+                                        uint64_t dk, uint64_t dv, int k0,
+                                        int q0, const int (&row_q)[2],
+                                        int tg, int T, float scale_log2,
+                                        int causal) {
+  constexpr int D = 64;
+  // S = Q K^T: four k-steps of 16 over D, 32 bytes along the rows
+  float s[4 * NB];
+#pragma unroll
+  for (int i = 0; i < 4 * NB; ++i) s[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(s, dq + 2 * kk, dk + 2 * kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+
+  // mask where the tile needs it; the running maximum per row is taken on
+  // the raw logits and then scaled (scale_log2 > 0 and rounding is
+  // monotonic, so it is the maximum of the scaled logits, as in v2), and
+  // exp2(s * scale_log2 - m) is one fma into ex2 (ex2.approx.ftz differs
+  // from exp2f only below 2^-126)
+  const bool full = k0 + 8 * NB <= T && (!causal || k0 + 8 * NB - 1 <= q0);
+  float m_tile[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < 4 * NB; ++i) {
+    const int ri = (i >> 1) & 1;
+    if (!full) {
+      const int key = k0 + (i >> 2) * 8 + tg * 2 + (i & 1);
+      if (key >= T || (causal && key > row_q[ri])) s[i] = -CUDART_INF_F;
+    }
+    m_tile[ri] = fmaxf(m_tile[ri], s[i]);
+  }
+  float alpha[2], m_use[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    m_tile[ri] = fmaxf(m_tile[ri], __shfl_xor_sync(0xffffffff, m_tile[ri], 1));
+    m_tile[ri] = fmaxf(m_tile[ri], __shfl_xor_sync(0xffffffff, m_tile[ri], 2));
+    const float m_new = fmaxf(m_run[ri], m_tile[ri] * scale_log2);
+    // a row with no key yet keeps m = -inf; exp2 against 0 then gives 0
+    m_use[ri] = m_new == -CUDART_INF_F ? 0.f : m_new;
+    alpha[ri] = ex2(m_run[ri] - m_use[ri]);
+    m_run[ri] = m_new;
+    l_run[ri] *= alpha[ri];
+  }
+  // O changes only where a row's maximum moved (alpha is exactly 1
+  // elsewhere); the warp skips the rescale when no row of its 16 did
+  if (__any_sync(0xffffffff, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * NB; ++i) {
+    const float p = ex2(fmaf(s[i], scale_log2, -m_use[(i >> 1) & 1]));
+    s[i] = p;
+    l_run[(i >> 1) & 1] += p;
+  }
+
+  // O += P V: the S accumulators of key slices 2kk and 2kk+1, packed to
+  // bf16, are the A fragment of key step kk (RS); V is B as it lies in
+  // memory, MN-major, and each key step starts 16 rows (2048 bytes) on
+  uint32_t pa[NB / 2][4];
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+  wgmma_fence();  // orders the rescaled acc and P before wgmma reads them
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) wgmma_rs_n64_mn(acc, pa[kk], dv + 128 * kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(acc);
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) reg_fence(pa[kk]);
+}
+
+// v3: one warpgroup per (batch, head, 64-row query tile), v2's grid.
+__global__ void __launch_bounds__(kThreads)
+    attention_kernel_v3(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        __nv_bfloat16* __restrict__ o, int T, int H,
+                        float scale_log2, int causal) {
+  constexpr int D = 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sK = sQ + kTile;      // two stages
+  uint8_t* sV = sK + 2 * kTile;  // two stages
+
+  const int q0 = blockIdx.x * kBQ;
+  const long long row_stride = (long long)H * D;
+  const long long base =
+      (long long)blockIdx.z * T * row_stride + (long long)blockIdx.y * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+
+  int n_tiles = (T + kBK - 1) / kBK;
+  if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
+
+  // stage the rows [r0, r0 + 64) of src into a swizzled tile, zeros past T
+  auto stage = [&](uint8_t* dst, const __nv_bfloat16* src, int r0) {
+#pragma unroll
+    for (int i = tid; i < kBK * 8; i += kThreads) {
+      const int r = i >> 3, c = i & 7;
+      const bool in = r0 + r < T;
+      const __nv_bfloat16* p =
+          src + base + (in ? (r0 + r) * row_stride + c * 8 : 0);
+      cp_async16(dst + swz(r, c), p, in ? 16 : 0);
+    }
+  };
+  stage(sQ, q, q0);
+  stage(sK, k, 0);
+  stage(sV, v, 0);
+  cp_async_commit();
+
+  const int wr = warp * 16 + g;  // this thread's rows: wr and wr + 8
+  const int row_q[2] = {q0 + wr, q0 + wr + 8};
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+  const uint64_t dq = sw128_desc(sQ);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = kt & 1;
+    cp_async_wait<0>();  // tile kt has landed
+    fence_proxy_async();
+    // every thread is done with tile kt - 1, whose stage is refilled now
+    // with tile kt + 1 while tile kt computes
+    __syncthreads();
+    if (kt + 1 < n_tiles) {
+      stage(sK + (buf ^ 1) * kTile, k, (kt + 1) * kBK);
+      stage(sV + (buf ^ 1) * kTile, v, (kt + 1) * kBK);
+      cp_async_commit();
+    }
+    const int k0 = kt * kBK;
+    const uint64_t dk = sw128_desc(sK + buf * kTile);
+    const uint64_t dv = sw128_desc(sV + buf * kTile);
+    if (T - k0 <= 16)  // a ragged last tile of at most 16 keys
+      v3_tile<2>(acc, m_run, l_run, dq, dk, dv, k0, q0, row_q, tg, T,
+                 scale_log2, causal);
+    else
+      v3_tile<8>(acc, m_run, l_run, dq, dk, dv, k0, q0, row_q, tg, T,
+                 scale_log2, causal);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    float l = l_run[ri];
+    l += __shfl_xor_sync(0xffffffff, l, 1);
+    l += __shfl_xor_sync(0xffffffff, l, 2);
+    inv[ri] = 1.f / l;
+  }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    if (row_q[ri] >= T) continue;
+    __nv_bfloat16* orow = o + base + row_q[ri] * row_stride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const __nv_bfloat162 val = __floats2bfloat162_rn(
+          acc[4 * n + 2 * ri] * inv[ri], acc[4 * n + 2 * ri + 1] * inv[ri]);
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + tg * 2) = val;
+    }
+  }
+}
+
+// Descriptor self-test (a test oracle; no path of the port calls it): one
+// 64 x 64 x 64 product on wgmma from 64 x 64 bf16 row-major a and b.
+// mode 0: c = a b^T, a and b K-major in shared memory (the S = Q K^T form);
+// mode 1: c = a b, a in registers, b MN-major in shared memory (the P V
+// form). c is float32 row-major.
+__global__ void __launch_bounds__(kThreads)
+    wgmma_selftest_kernel(const __nv_bfloat16* __restrict__ a,
+                          const __nv_bfloat16* __restrict__ b,
+                          float* __restrict__ c, int mode) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sA = align1024(smem_raw);
+  uint8_t* sB = sA + kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  for (int i = tid; i < 64 * 8; i += kThreads) {
+    const int r = i >> 3, ch = i & 7;
+    cp_async16(sA + swz(r, ch), a + r * 64 + ch * 8, 16);
+    cp_async16(sB + swz(r, ch), b + r * 64 + ch * 8, 16);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  const int row = warp * 16 + g;
+  uint32_t af[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    af[kk][0] = ld32(a + row * 64 + kk * 16 + tg * 2);
+    af[kk][1] = ld32(a + (row + 8) * 64 + kk * 16 + tg * 2);
+    af[kk][2] = ld32(a + row * 64 + kk * 16 + 8 + tg * 2);
+    af[kk][3] = ld32(a + (row + 8) * 64 + kk * 16 + 8 + tg * 2);
+  }
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  const uint64_t da = sw128_desc(sA), db = sw128_desc(sB);
+  wgmma_fence();
+  if (mode == 0) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(d, da + 2 * kk, db + 2 * kk);
+  } else {
+    // k-step kk starts 16 rows (2048 bytes) further into b
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64_mn(d, af[kk], db + 128 * kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(d);
+  reg_fence(af[0]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[(row + 8 * (e >> 1)) * 64 + 8 * j + 2 * tg + (e & 1)] = d[4 * j + e];
+  }
+}
+
 // Float32 instance (the JAX kernels also run in float32). The same tiles,
 // masks and online softmax on the CUDA cores: the tensor cores take float32
 // only as TF32, which would round the inputs to 10 mantissa bits. Two
@@ -391,55 +783,73 @@ __global__ void __launch_bounds__(kThreads)
                     acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
 }
 
-template <typename E, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int T,
-           int H, float scale_log2, int causal, cudaStream_t stream) {
+template <typename E>
+using Kernel = void (*)(const E*, const E*, const E*, E*, int, int, float,
+                        int);
+
+// v2's grid: one block of 128 threads per (64-row query tile, head, batch)
+template <typename E>
+int launch(Kernel<E> kernel, int smem, const void* q, const void* k,
+           const void* v, void* o, int B, int T, int H, float scale_log2,
+           int causal, void* stream) {
+  if (kernel == nullptr || B <= 0 || T <= 0 || H <= 0 || B > 65535 ||
+      H > 65535)
+    return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  const E *qe = static_cast<const E*>(q), *ke = static_cast<const E*>(k),
-          *ve = static_cast<const E*>(v);
-  E* oe = static_cast<E*>(o);
-  if constexpr (sizeof(E) == 4)
-    attention_kernel_f32<D><<<grid, kThreads, 0, stream>>>(
-        qe, ke, ve, oe, T, H, scale_log2, causal);
-  else
-    attention_kernel<D><<<grid, kThreads, 0, stream>>>(
-        qe, ke, ve, oe, T, H, scale_log2, causal);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(o), T, H, scale_log2, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename E>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int T,
-             int H, int D, float scale_log2, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T <= 0 || H <= 0 || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 16: return launch<E, 16>(q, k, v, o, B, T, H, scale_log2, causal, s);
-    case 32: return launch<E, 32>(q, k, v, o, B, T, H, scale_log2, causal, s);
-    case 64: return launch<E, 64>(q, k, v, o, B, T, H, scale_log2, causal, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+// Q, two K and two V stages, and the slack to align them to 1024 bytes
+constexpr int kV3Smem = 5 * kTile + 1024;
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: contiguous (B, T, H, D), equivalently (B, T, H*D), bfloat16
-// (dropclip_attention) or float32 (dropclip_attention_f32).
-// scale_log2 = D^-0.5 * log2(e). Returns cudaGetLastError() after the
-// launch (0 = launched).
+// q, k, v, o: contiguous (B, T, H, D), equivalently (B, T, H*D).
+// scale_log2 = D^-0.5 * log2(e). Each returns cudaGetLastError() after
+// the launch (0 = launched).
+
+// v3: bfloat16, D = 64
+int dropclip_attention_v3(const void* q, const void* k, const void* v,
+                          void* o, int B, int T, int H, float scale_log2,
+                          int causal, void* stream) {
+  return launch<__nv_bfloat16>(attention_kernel_v3, kV3Smem, q, k, v, o, B,
+                               T, H, scale_log2, causal, stream);
+}
+
+// v2: bfloat16, D = 16 or 32
 int dropclip_attention(const void* q, const void* k, const void* v, void* o,
                        int B, int T, int H, int D, float scale_log2, int causal,
                        void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, T, H, D, scale_log2, causal,
-                                 stream);
+  Kernel<__nv_bfloat16> kernel = D == 16   ? attention_kernel<16>
+                                 : D == 32 ? attention_kernel<32>
+                                           : nullptr;
+  return launch(kernel, 0, q, k, v, o, B, T, H, scale_log2, causal, stream);
 }
 
+// float32, D = 16, 32 or 64
 int dropclip_attention_f32(const void* q, const void* k, const void* v, void* o,
                            int B, int T, int H, int D, float scale_log2,
                            int causal, void* stream) {
-  return dispatch<float>(q, k, v, o, B, T, H, D, scale_log2, causal, stream);
+  Kernel<float> kernel = D == 16   ? attention_kernel_f32<16>
+                         : D == 32 ? attention_kernel_f32<32>
+                         : D == 64 ? attention_kernel_f32<64>
+                                   : nullptr;
+  return launch(kernel, 0, q, k, v, o, B, T, H, scale_log2, causal, stream);
+}
+
+// the descriptor self-test: a, b 64 x 64 bf16, c 64 x 64 float32
+int dropclip_wgmma_selftest(const void* a, const void* b, void* c, int mode,
+                            void* stream) {
+  wgmma_selftest_kernel<<<1, kThreads, 2 * kTile + 1024,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<float*>(c), mode);
+  return (int)cudaGetLastError();
 }
 
 const char* dropclip_cuda_error_string(int err) {

@@ -40,7 +40,9 @@ class CudaLibrary:
     """One ``csrc/<name>.cu`` source: ``build()`` compiles it if this
     source and these flags have no library yet, ``load()`` opens it once
     and lets ``bind`` set the ctypes signatures. ``build_log`` keeps
-    nvcc's output (ptxas registers, shared memory and spills)."""
+    nvcc's output (ptxas registers, shared memory and spills), which is
+    also kept beside the library for a later process that finds it
+    built."""
 
     def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
         self.name = name
@@ -58,7 +60,9 @@ class CudaLibrary:
         """Compile if needed; returns the library's path. Safe against
         concurrent builders (atomic rename)."""
         lib = self.library_path()
+        log = lib.with_suffix(".log")
         if lib.exists():
+            self.build_log = log.read_text() if log.exists() else ""
             return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -70,6 +74,7 @@ class CudaLibrary:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed for {self.source.name} "
                                f"({proc.returncode}):\n{self.build_log}")
+        log.write_text(self.build_log)
         os.replace(tmp, lib)
         return lib
 

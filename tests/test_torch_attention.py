@@ -1,7 +1,11 @@
 """K3, K4 and K5 plain versions (dropclip_tpu_torch.ops.attention) against
 the JAX package: the Pallas kernels in interpret mode (K3, K4) and K5's
-CPU oracle, ``jax.nn.dot_product_attention``; and the dispatch
-predicates against the JAX ones."""
+CPU oracle, ``jax.nn.dot_product_attention``; the dispatch predicates
+against the JAX ones; and the binding's choice of kernel instance."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -112,3 +116,36 @@ def test_kernel_binding_checks_before_any_build(dtype, error):
     q = torch.zeros((1, 8, 2, 64), dtype=dtype)
     with pytest.raises(error):
         attention(q, q, q, 2)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "v3"), (torch.bfloat16, 32, "v2"),
+    (torch.bfloat16, 16, "v2"), (torch.float32, 64, "f32"),
+    (torch.float32, 32, "f32"), (torch.float32, 16, "f32"),
+    (torch.float16, 64, TypeError), (torch.float64, 32, TypeError),
+    (torch.bfloat16, 48, ValueError), (torch.bfloat16, 128, ValueError),
+    (torch.float32, 8, ValueError)])
+def test_kernel_instance_by_dtype_and_head_dim(dtype, d, want):
+    """bf16 at D = 64 runs v3 (wgmma), bf16 at D = 16 and 32 v2
+    (mma.sync), float32 the CUDA-core instance; anything else raises."""
+    from dropclip_tpu_torch.kernels.attention import instance
+
+    if isinstance(want, str):
+        assert instance(dtype, d) == want
+    else:
+        with pytest.raises(want):
+            instance(dtype, d)
+
+
+def test_kernel_binding_imports_without_nvcc():
+    """Importing the binding and choosing an instance build and load
+    nothing, even where no nvcc can be found."""
+    code = ("import torch\n"
+            "from dropclip_tpu_torch.kernels import attention as a\n"
+            "from dropclip_tpu_torch.kernels.nvcc import LIBRARIES\n"
+            "assert a.instance(torch.bfloat16, 64) == 'v3'\n"
+            "assert LIBRARIES['attention']._lib is None\n")
+    env = dict(os.environ, NVCC="/nonexistent/nvcc", PATH="/usr/bin:/bin")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                   check=True, timeout=120)

@@ -208,6 +208,87 @@ def test_attention_keys_past_t_do_not_leak(cuda):
     _assert_attention_close(got, att.oneshot_attention_plain(q, k, v))
 
 
+@pytest.mark.parametrize("mode", [0, 1])
+def test_wgmma_descriptor_selftest(cuda, mode):
+    """One 64x64x64 wgmma with v3's descriptors against the float32
+    product (TF32 off): mode 0 K-major SS (S = Q K^T), mode 1 RS A with an
+    MN-major B (O += P V). bf16 products are exact in float32; the sums
+    differ in order only: within 1e-5 of max|ref|."""
+    from dropclip_tpu_torch.kernels.attention import wgmma_selftest
+
+    q, k, _ = _qkv((64, 64), seed=20 + mode)
+    b = k if mode == 0 else k.T.contiguous()
+    got = wgmma_selftest(q, b, mode)
+    ref = q.float() @ k.float().T
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 129, 769, 3073])
+def test_v3_matches_plain(cuda, t, causal):
+    """v3 (bf16, D = 64) at T on and off the 64-row tiles: packed (K3) and
+    per-head (K4) non-causal, K5 causal or not, each within the bf16
+    limit of its plain version."""
+    from dropclip_tpu_torch.kernels.attention import instance
+
+    assert instance(torch.bfloat16, 64) == "v3"
+    b, h = 2, 4
+    q, k, v = _qkv((b, t, h, 64), seed=t + causal)
+    got = att.flash_attention_padded(q, k, v, causal)
+    _assert_attention_close(got, att.flash_attention_plain(q, k, v, causal))
+    if not causal:
+        packed = [x.reshape(b, t, h * 64) for x in (q, k, v)]
+        got3 = att.oneshot_attention_packed(*packed, h)
+        _assert_attention_close(got3, att.oneshot_attention_packed_plain(
+            *packed, h))
+        got4 = att.oneshot_attention(q, k, v)
+        _assert_attention_close(got4, att.oneshot_attention_plain(q, k, v))
+        assert torch.equal(got3.reshape(b, t, h, 64), got4)
+
+
+@pytest.mark.parametrize("t,causal", [(1, False), (65, True), (769, False)])
+def test_v3_keys_past_t_do_not_leak(cuda, t, causal):
+    """The leak test on v3 at T where the last key tile is ragged: Inf and
+    NaN right after the last key never reach the output."""
+    b, h, d = 1, 2, 64
+    q, k, v = _qkv((b, t + 64, h, d), seed=t + 1)
+    k[:, t:] = float("inf")
+    v[:, t:] = float("nan")
+    q, k, v = (x[:, :t] for x in (q, k, v))
+    got = att.flash_attention_padded(q, k, v, causal)
+    assert torch.isfinite(got.float()).all()
+    _assert_attention_close(got, att.flash_attention_plain(q, k, v, causal))
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "attention_kernel_v3"),
+    (torch.bfloat16, 16, "attention_kernel<16>"),
+    (torch.bfloat16, 32, "attention_kernel<32>"),
+    (torch.float32, 64, "attention_kernel_f32<64>"),
+    (torch.float32, 16, "attention_kernel_f32<16>")])
+def test_attention_shapes_reach_their_instance(cuda, dtype, d, kernel):
+    """The profiler names the kernel that ran: v3 for bf16 at D = 64, v2
+    for bf16 at D = 16 and 32, the float32 instance for float32."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = (torch.randn((2, 100, 4, d), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    att.oneshot_attention(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            att.oneshot_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    ran = [n for n in names if "attention_kernel" in n]
+    assert ran and all(kernel in n for n in ran), names
+
+
 @pytest.mark.parametrize("b,t,h,d,causal", [(2, 769, 16, 64, False),
                                             (3, 77, 12, 64, True),
                                             (2, 200, 8, 16, False),
