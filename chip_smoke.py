@@ -11,7 +11,9 @@
    and spills per entry function (attention v3 must not spill);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes its paths give it (K1: the 16 k3 convs of MinkUNet14D at batch 8
-   in float32 with TF32 off and in bf16; K6: the text tower's (Q*77, 768)
+   in float32 with TF32 off and in bf16, both timed against halo gather +
+   cuDNN ``conv3d`` in the same dtype and a tensor-core bound, 3xTF32 for
+   float32; K6: the text tower's (Q*77, 768)
    rows and the ViT-L teacher's (96*769, 1024) and (96, 1024) rows; K3 and
    K4: the teacher's (96, 769, 16, 64) bf16; K5: the hi-res patch
    extract's (8, 3073, 16, 64) bf16, with DINO v1 hi-res, causal T=77 and
@@ -71,8 +73,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BATCH = 8
 # Published H100 SXM peaks (NVIDIA data sheet, dense): float32 outside
-# the tensor cores, bf16 tensor cores, HBM3 bandwidth.
+# the tensor cores, bf16 and TF32 tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12  # TF32 tensor cores: K1's float32 runs 3xTF32 on them
 PEAK_BYTES = 3.35e12
 QUERY_SETS = [["the red mug", "a green bowl"], ["a blue bottle", "the box"],
               ["a yellow can", "the white plate"], ["a spoon", "the fork"],
@@ -185,6 +188,25 @@ def make_clouds(n_scenes):
     return clouds, rgbs
 
 
+def brick_pipeline(cfg, clouds, rgbs, clip_sim):
+    """The brick-engine pipeline on the card with weights from SEED and
+    brick capacities autotuned on the scenes, as a user would fit them."""
+    from dropclip_tpu_torch.distill.engine import brick_shape_of
+    from dropclip_tpu_torch.pipeline import GroundingPipeline
+    from dropclip_tpu_torch.sparse.bricks import autotune_brick_capacities
+
+    probe = GroundingPipeline(cfg, device="cuda", seed=SEED)
+    vox = [probe._host_voxelize(x, r)[0] for x, r in zip(clouds, rgbs)]
+    del probe
+    caps = autotune_brick_capacities(np.stack([v.coords for v in vox]),
+                                     np.stack([v.mask for v in vox]),
+                                     brick_shape=brick_shape_of(cfg))
+    print(f"scenes: {[int(v.mask.sum()) for v in vox]} voxels; brick "
+          f"capacities {caps}", flush=True)
+    return GroundingPipeline(cfg, clip_sim=clip_sim, brick_capacities=caps,
+                             device="cuda", seed=SEED)
+
+
 def main_path_shapes(model):
     """(level, C, Cout) of every k3 conv in forward order."""
     shapes = []
@@ -199,13 +221,15 @@ def main_path_shapes(model):
     return shapes
 
 
-def k1_phase(pipe, clouds, rgbs, report):
-    """K1 against its plain version at the 16 main-path shapes, batch 8."""
-    import torch.nn.functional as F
-
+def k1_cases(pipe, clouds, rgbs):
+    """The 16 main-path k3 convs on the folded batch-8 topology of the
+    tabletop scenes: [(i, level, C, Cout, BrickLevel, occupied pairs,
+    schedule)], where the pairs are the (occupied output voxel, occupied
+    input voxel) pairs one tap apart, the work this data needs, and the
+    schedule is the level's ``row_order`` as the student shares it (None
+    for a checkout without one)."""
     from dropclip_tpu_torch.distill.engine import build_topology
-    from dropclip_tpu_torch.kernels.brick_conv3 import (brick_conv3,
-                                                        brick_conv3_plain)
+    from dropclip_tpu_torch.kernels import brick_conv3 as k1
     from dropclip_tpu_torch.sparse.bricks import fold_topology, halo_exchange
 
     voxes = [pipe._host_voxelize(x, r)[0] for x, r in zip(clouds, rgbs)]
@@ -213,48 +237,114 @@ def k1_phase(pipe, clouds, rgbs, report):
                              device="cuda")
     mask = torch.as_tensor(np.stack([v.mask for v in voxes]), device="cuda")
     topo = fold_topology(build_topology(pipe.cfg, coords, mask))
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                     "library_ms": 0.0}
-    max_err = 0.0
+    row_order = getattr(k1, "row_order", None)
+    scheds = {}
+    cases = []
     for i, (lvl, c, cout) in enumerate(main_path_shapes(pipe.model)):
         lv = topo.levels[lvl]
-        bm, bx, by, bz = lv.occ.shape
         occf = lv.occ[..., None].float()
-        # data-needed work: occupied (output voxel, input voxel) tap pairs
         halo = halo_exchange(occf, lv.nbr, 1)
         taps = (halo.unfold(1, 3, 1).unfold(2, 3, 1).unfold(3, 3, 1)
                 .sum((-1, -2, -3))[..., 0])
-        pairs = float((taps * occf[..., 0]).sum())
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn((bm, bx, by, bz, c), generator=gen,
-                             device="cuda") * occf).to(dtype)
-            w = (torch.randn((27, c, cout), generator=gen, device="cuda")
-                 * (2.0 / (27 * cout)) ** 0.5).to(dtype)
-            got = brick_conv3(x, lv.nbr, w, lv.occ).float()
-            ref = brick_conv3_plain(x, lv.nbr, w, lv.occ).float()
+        if lvl not in scheds:
+            scheds[lvl] = row_order and row_order(lv.occ, lv.nbr)
+        cases.append((i, lvl, c, cout, lv,
+                      float((taps * occf[..., 0]).sum()), scheds[lvl]))
+    return cases
+
+
+def k1_schedule_ms(cases):
+    """Device time of one forward's K1 row schedules: ``row_order`` once
+    per distinct level, as the student computes them."""
+    from dropclip_tpu_torch.kernels import brick_conv3 as k1
+
+    if not hasattr(k1, "row_order"):
+        return 0.0
+    levels = {lvl: lv for _, lvl, _, _, lv, _, _ in cases}
+    return sum(cuda_ms(lambda: k1.row_order(lv.occ, lv.nbr), 10)
+               for lv in levels.values())
+
+
+def k1_call(conv, x, lv, w, sched):
+    """One K1 call with the level's shared schedule, where there is one."""
+    if sched is None:
+        return conv(x, lv.nbr, w, lv.occ)
+    return conv(x, lv.nbr, w, lv.occ, sched)
+
+
+def k1_inputs(lv, c, cout, dtype, gen):
+    """Seeded features (zero on empty voxels, as the student gives them)
+    and He-scaled weights for one K1 call."""
+    occf = lv.occ[..., None].float()
+    x = (torch.randn(tuple(lv.occ.shape) + (c,), generator=gen,
+                     device="cuda") * occf).to(dtype)
+    w = (torch.randn((27, c, cout), generator=gen, device="cuda")
+         * (2.0 / (27 * cout)) ** 0.5).to(dtype)
+    return x, w
+
+
+def k1_close(got, ref, dtype):
+    """K1's limits: float32 rtol 1e-4 plus atol 1e-4 * max|ref| (the
+    summation order of 27*C terms; TF32 off in the plain version), bf16
+    1e-2 * max|ref| (one bf16 rounding of the output). Returns (ok, max
+    abs err, max|ref|)."""
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if dtype == torch.float32:
+        ok = torch.allclose(got, ref, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        ok = err <= 1e-2 * scale
+    return ok and scale > 0, err, scale
+
+
+def k1_bound(flops, nbytes, dtype):
+    """The least time (ms) of one K1 call and what bounds it: float32 at
+    three TF32 tensor-core products per product (3xTF32), bf16 at the bf16
+    tensor-core rate; the bytes each input read once, the output written
+    once."""
+    t_ops = (3 * flops / PEAK_TF32 if dtype == torch.float32
+             else flops / PEAK_FLOPS[dtype])
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def k1_phase(pipe, clouds, rgbs, report):
+    """K1 against its plain version at the 16 main-path shapes, batch 8,
+    in float32 (the serve dtype) and bf16 (bench.py's infer and train
+    dtype), each timed beside the plain version and halo gather + cuDNN
+    ``conv3d`` in the same dtype."""
+    import torch.nn.functional as F
+
+    from dropclip_tpu_torch.kernels.brick_conv3 import (brick_conv3,
+                                                        brick_conv3_plain)
+    from dropclip_tpu_torch.sparse.bricks import halo_exchange
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    tot = {dt: dict.fromkeys(keys, 0.0) for dt in ("f32", "bf16")}
+    max_err = {"f32": 0.0, "bf16": 0.0}
+    cases = k1_cases(pipe, clouds, rgbs)
+    for i, lvl, c, cout, lv, pairs, sched in cases:
+        bm, bx, by, bz = lv.occ.shape
+        row = dict(shape=i, level=lvl, bm=bm, c=c, cout=cout,
+                   flops_needed=2.0 * pairs * c * cout,
+                   flops_padded=2.0 * bm * bx * by * bz * 27 * c * cout)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x, w = k1_inputs(lv, c, cout, dtype, gen)
+            got = k1_call(brick_conv3, x, lv, w, sched)
+            ref = brick_conv3_plain(x, lv.nbr, w, lv.occ)
             torch.cuda.synchronize()
-            scale = float(ref.abs().max())
-            err = float((got - ref).abs().max())
-            if dtype == torch.float32:
-                ok = torch.allclose(got, ref, rtol=1e-4, atol=1e-4 * scale)
-            else:
-                ok = err <= 1e-2 * scale
-            check(ok and scale > 0, f"K1 {dtype} shape {i} (L{lvl} {c}->"
-                  f"{cout}, Bm {bm}): max err {err} vs max|ref| {scale}")
-            if dtype != torch.float32:
-                rows[-1]["bf16_max_abs_err"] = err
-                rows[-1]["bf16_rel_err"] = err / scale
-                continue
-            max_err = max(max_err, err)
+            ok, err, scale = k1_close(got, ref, dtype)
+            check(ok, f"K1 {dtype} shape {i} (L{lvl} {c}->{cout}, Bm "
+                  f"{bm}): max err {err} vs max|ref| {scale}")
+            max_err[tag] = max(max_err[tag], err)
             es = x.element_size()
             nbytes = (x.numel() * es + w.numel() * es + lv.nbr.numel() * 4
                       + lv.occ.numel() + bm * bx * by * bz * cout * es)
-            flops = 2.0 * pairs * c * cout
-            bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
-            k_ms = cuda_ms(lambda: brick_conv3(x, lv.nbr, w, lv.occ), 5)
-            p_ms = cuda_ms(lambda: brick_conv3_plain(x, lv.nbr, w, lv.occ),
-                           2, warmup=1)
+            bound, by_what = k1_bound(row["flops_needed"], nbytes, dtype)
             w5 = w.permute(2, 1, 0).reshape(cout, c, 3, 3, 3).contiguous()
 
             def library():
@@ -262,31 +352,58 @@ def k1_phase(pipe, clouds, rgbs, report):
                 return F.conv3d(h, w5).permute(0, 2, 3, 4, 1) * \
                     lv.occ[..., None]
 
-            lib_err = float((library() - ref).abs().max())
-            l_ms = cuda_ms(library, 3, warmup=1)
-            row = dict(shape=i, level=lvl, bm=bm, c=c, cout=cout,
-                       max_abs_err=err, rel_err=err / scale,
-                       library_max_abs_err=lib_err, ms=k_ms, plain_ms=p_ms,
-                       library_ms=l_ms, bound_ms=bound,
-                       bound_by="operations" if flops / PEAK_FLOPS[dtype]
-                       > nbytes / PEAK_BYTES else "bytes",
-                       flops_needed=flops,
-                       flops_padded=2.0 * bm * bx * by * bz * 27 * c * cout,
-                       bytes=nbytes)
-            rows.append(row)
-            for k in tot:
-                tot[k] += row[k]
-        r = rows[-1]
+            lib_ok, lib_err, _ = k1_close(library(), ref, dtype)
+            row[tag] = dict(
+                max_abs_err=err, rel_err=err / scale, library_ok=lib_ok,
+                library_max_abs_err=lib_err,
+                ms=cuda_ms(lambda: k1_call(brick_conv3, x, lv, w, sched),
+                           5),
+                plain_ms=cuda_ms(lambda: brick_conv3_plain(
+                    x, lv.nbr, w, lv.occ), 2, warmup=1),
+                library_ms=cuda_ms(library, 3, warmup=1), bound_ms=bound,
+                bound_by=by_what, bytes=nbytes)
+            if dtype == torch.float32:
+                # the CUDA cores' float32 rate, for reference
+                row[tag]["bound_f32_cores_ms"] = max(
+                    row["flops_needed"] / PEAK_FLOPS[dtype],
+                    nbytes / PEAK_BYTES) * 1e3
+            for k in keys:
+                tot[tag][k] += row[tag][k]
+            del x, w, got, ref
+        rows.append(row)
+        f, b = row["f32"], row["bf16"]
         print(f"K1 L{lvl} {c:4d}->{cout:4d} Bm={bm:5d}: f32 err "
-              f"{r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) bf16 rel "
-              f"{r['bf16_rel_err']:.3e} | kernel {r['ms']:.4f} ms plain "
-              f"{r['plain_ms']:.4f} ms cudnn {r['library_ms']:.4f} ms bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"{f['max_abs_err']:.3e} (rel {f['rel_err']:.3e}) kernel "
+              f"{f['ms']:.4f} plain {f['plain_ms']:.4f} cudnn "
+              f"{f['library_ms']:.4f} bound {f['bound_ms']:.4f} ms "
+              f"({f['bound_by']}) | bf16 rel {b['rel_err']:.3e} kernel "
+              f"{b['ms']:.4f} plain {b['plain_ms']:.4f} cudnn "
+              f"{b['library_ms']:.4f} bound {b['bound_ms']:.4f} ms",
+              flush=True)
+    # the row schedules (once per level) are part of every forward's K1
+    sched_ms = k1_schedule_ms(cases)
+    for tag in ("f32", "bf16"):
+        tot[tag]["kernel_only_ms"] = tot[tag]["ms"]
+        tot[tag]["ms"] += sched_ms
     report["k1_shapes"] = rows
-    print(f"K1 per forward (16 convs, batch {BATCH}, f32): kernel "
-          f"{tot['ms']} ms, plain {tot['plain_ms']} ms, cudnn "
-          f"{tot['library_ms']} ms, bound {tot['bound_ms']} ms", flush=True)
-    return dict(max_abs_err=max_err, bound_by="operations", **tot)
+    report["k1_per_forward"] = dict(tot, schedule_ms=sched_ms)
+    for tag in ("f32", "bf16"):
+        t = tot[tag]
+        print(f"K1 per forward (16 convs, batch {BATCH}, {tag}): "
+              f"{t['ms']} ms ({t['kernel_only_ms']} in the 16 calls, "
+              f"{sched_ms} in 5 row schedules), plain {t['plain_ms']} ms, "
+              f"cudnn {t['library_ms']} ms, bound {t['bound_ms']} ms",
+              flush=True)
+    # what bounds the forward: the limit that bounds the most bound time
+    by = {}
+    for row in rows:
+        f = row["f32"]
+        by[f["bound_by"]] = by.get(f["bound_by"], 0.0) + f["bound_ms"]
+    f32 = dict(max_abs_err=max_err["f32"], bound_by=max(by, key=by.get),
+               **tot["f32"])
+    f32.update({f"bf16_{k}": v for k, v in tot["bf16"].items()})
+    f32["bf16_max_abs_err"] = max_err["bf16"]
+    return f32
 
 
 def k6_phase(report):
@@ -1321,10 +1438,8 @@ def main():
         return 2
     # fails here, before any output, when run outside a checkout
     from dropclip_tpu_torch.core.config import load_cfg
-    from dropclip_tpu_torch.distill.engine import brick_shape_of
     from dropclip_tpu_torch.pipeline import (GroundingPipeline,
                                              fit_pillar_shapes, make_clip_sim)
-    from dropclip_tpu_torch.sparse.bricks import autotune_brick_capacities
     from dropclip_tpu_torch.sparse.pillar_topology import \
         build_pillar_topology
     from dropclip_tpu_torch.tools.preprocess_data import build_extractor
@@ -1358,17 +1473,7 @@ def main():
     clouds, rgbs = make_clouds(BATCH)
     report = {"card": card, "torch": torch.__version__}
     clip_sim = make_clip_sim(cfg, "cuda", SEED)
-    probe = GroundingPipeline(cfg, clip_sim=clip_sim, device="cuda",
-                              seed=SEED)
-    vox = [probe._host_voxelize(x, r)[0] for x, r in zip(clouds, rgbs)]
-    caps = autotune_brick_capacities(np.stack([v.coords for v in vox]),
-                                     np.stack([v.mask for v in vox]),
-                                     brick_shape=brick_shape_of(cfg))
-    print(f"scenes: {[int(v.mask.sum()) for v in vox]} voxels; brick "
-          f"capacities {caps}", flush=True)
-    pipe = GroundingPipeline(cfg, clip_sim=clip_sim, brick_capacities=caps,
-                             device="cuda", seed=SEED)
-    del probe
+    pipe = brick_pipeline(cfg, clouds, rgbs, clip_sim)
 
     k1 = k1_phase(pipe, clouds, rgbs, report)
     k6 = k6_phase(report)
@@ -1379,7 +1484,7 @@ def main():
     profile_phase(
         (("ground", lambda: pipe.ground(clouds[6], rgbs[6], queries)),
          ("ground_batch", lambda: pipe.ground_batch(clouds, rgbs, queries))),
-        (("K1", "brick_conv3_kernel"), ("K6", "_ln_rows")), report,
+        (("K1", "brick_conv3_mma"), ("K6", "_ln_rows")), report,
         trace="ground")
     del pipe
     torch.cuda.empty_cache()

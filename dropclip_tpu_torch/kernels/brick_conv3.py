@@ -8,26 +8,49 @@ first use and loaded with ``ctypes`` (``kernels/nvcc.py``).
 ``brick_conv3`` is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it takes the plain version,
 ``brick_conv3_plain`` (``sparse.bricks.brick_conv`` with ksize 3).
-``brick_conv3.launches`` counts kernel launches.
+``brick_conv3.launches`` counts kernel launches. ``instance`` picks the
+kernel's instance from (dtype, C, Cout); ``row_order`` is its row
+schedule (occupied rows sorted by their 27-bit tap mask, ``tap_masks``),
+torch ops on any device, which a caller may compute once per level and
+pass in.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..sparse.bricks import BrickLevel, brick_conv
 from .nvcc import library
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# instance name -> the ``kind`` argument of dropclip_brick_conv3
+KINDS = {"tf32x3": 0, "tf32x3_ragged": 1, "bf16": 2, "bf16_ragged": 3}
+
+
+def instance(dtype: torch.dtype, c: int, cout: int,
+             aligned: bool = True) -> str:
+    """The kernel instance that takes (dtype, C, Cout), all on the tensor
+    cores: float32 through 3xTF32 on mma.sync ("tf32x3"), bfloat16 on
+    wgmma ("bf16"). Both fill shared memory with 16-byte copies when C and
+    Cout are multiples of 16 bytes' worth of elements (4 float32, 8
+    bfloat16) and the tensors are 16-byte aligned, else element by element
+    on the same products (the "_ragged" instances, e.g. C = 3). Raises
+    TypeError for any other dtype."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"feats dtype {dtype} not float32/bfloat16")
+    name = "tf32x3" if dtype == torch.float32 else "bf16"
+    per16 = 16 // (4 if dtype == torch.float32 else 2)
+    vec = aligned and c % per16 == 0 and cout % per16 == 0
+    return name if vec else name + "_ragged"
 
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dropclip_brick_conv3.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                         i, p]
+    lib.dropclip_brick_conv3.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                         i, i, p]
     lib.dropclip_brick_conv3.restype = i
 
 
@@ -40,6 +63,67 @@ def brick_conv3_plain(feats: torch.Tensor, nbr: torch.Tensor,
     """Plain PyTorch version of K1 (halo gather + 27-tap matmul)."""
     level = BrickLevel(coords=None, keys=None, mask=None, occ=occ, nbr=nbr)
     return brick_conv(feats, level, weights, ksize=3)
+
+
+_TAP_TABLES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _tap_tables(bshape: Tuple[int, int, int], device: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``source[v, t]``: where the tap-t source of voxel v of a brick lies,
+    as ``direction * bx*by*bz + voxel``, with ``direction`` the column of
+    ``nbr`` (lexicographic (dx, dy, dz)) and ``voxel`` the row-major slot
+    within that brick; and ``bit[t] = 1 << t``. Built once per brick shape
+    and device."""
+    key = (tuple(bshape), str(device))
+    if key not in _TAP_TABLES:
+        ext = torch.tensor(bshape)
+        axes = [torch.arange(n) for n in bshape]
+        vox = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+        off = torch.stack(torch.meshgrid(*[torch.arange(-1, 2)] * 3,
+                                         indexing="ij"), -1)
+        p = vox.reshape(-1, 1, 3) + off.reshape(1, 27, 3)
+        d = (p >= ext).long() - (p < 0).long()
+        q = p - d * ext
+        direction = (d[..., 0] + 1) * 9 + (d[..., 1] + 1) * 3 + d[..., 2] + 1
+        within = (q[..., 0] * bshape[1] + q[..., 1]) * bshape[2] + q[..., 2]
+        bit = torch.ones(27, dtype=torch.int32) << torch.arange(
+            27, dtype=torch.int32)
+        _TAP_TABLES[key] = ((direction * int(ext.prod()) + within).to(device),
+                            bit.to(device))
+    return _TAP_TABLES[key]
+
+
+def tap_masks(live: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """(Bm, bx, by, bz) int32 of 27-bit masks: bit t is set where the
+    tap-t source of a voxel lies in a brick that exists (``nbr`` in [0,
+    Bm)) and is ``live`` there. ``live`` (Bm, bx, by, bz) bool: the
+    voxels whose features may be nonzero."""
+    bm, bx, by, bz = live.shape
+    v = bx * by * bz
+    source, bit = _tap_tables((bx, by, bz), live.device)
+    # a miss (-1 or Bm after the clamp) reads the zero row at the end
+    padded = torch.cat([live.reshape(bm, v), live.new_zeros((1, v))])
+    near = padded[nbr.long().clamp(-1, bm)].reshape(bm, 27 * v)
+    return (near[:, source] * bit).sum(-1, dtype=torch.int32).reshape(
+        bm, bx, by, bz)
+
+
+def row_order(occ: torch.Tensor, nbr: torch.Tensor,
+              live: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's row schedule, on the device of ``occ`` with no host sync:
+    ``order``, the occupied voxel rows sorted by (tap mask, row) and then
+    the empty rows ascending (Bm*bx*by*bz int32); ``n_occ``, their count
+    (int32 scalar tensor); ``masks``, every row's tap mask
+    (``tap_masks(live, nbr)`` flattened; ``live`` defaults to ``occ``).
+    Rows with one mask share a 128-row tile, so a tile's union of masks,
+    the taps it computes, stays small."""
+    masks = tap_masks(occ if live is None else live, nbr).reshape(-1)
+    occ_flat = occ.reshape(-1)
+    key = torch.where(occ_flat, masks, 1 << 27)
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    return order, occ_flat.sum(dtype=torch.int32), masks
 
 
 def _check(feats, nbr, weights, occ) -> Tuple[int, int, int, int, int, int]:
@@ -79,14 +163,36 @@ def _check(feats, nbr, weights, occ) -> Tuple[int, int, int, int, int, int]:
 
 
 def brick_conv3(feats: torch.Tensor, nbr: torch.Tensor,
-                weights: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+                weights: torch.Tensor, occ: torch.Tensor,
+                schedule: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]] = None
+                ) -> torch.Tensor:
     """k3 submanifold brick conv: (Bm, bx,by,bz, C) -> (Bm, bx,by,bz, Cout),
     masked to ``occ``. nbr (Bm, 27) int32 (miss: any row outside [0, Bm)),
     weights (27, C, Cout) in the feats dtype. CUDA tensors run K1, CPU
-    tensors the plain version."""
+    tensors the plain version.
+
+    ``schedule``: ``row_order(occ, nbr)`` of this very level, which a
+    caller may compute once and share between convs. Contract, which the
+    wrapper cannot check without a host sync: ``feats`` is zero at every
+    voxel outside ``occ`` (the brick student's convs keep it, since every
+    input is masked to ``occ``), because K1 reads no source outside
+    ``occ`` and a schedule of another level gives wrong sums; only the
+    shapes, dtypes and device are checked. Without a schedule the wrapper
+    orders the rows itself and takes a source as live where its features
+    are not all zero, which holds for any input."""
     if not feats.is_cuda:
         return brick_conv3_plain(feats, nbr, weights, occ)
     bm, bx, by, bz, c, cout = _check(feats, nbr, weights, occ)
+    if schedule is not None:
+        rows = bm * bx * by * bz
+        order, n_occ, masks = schedule
+        if (order.shape != (rows,) or masks.shape != (rows,)
+                or n_occ.numel() != 1 or any(
+                    t.dtype != torch.int32 or t.device != feats.device
+                    for t in schedule)):
+            raise ValueError("schedule must be row_order(occ, nbr) of this "
+                             "level")
     out = torch.empty((bm, bx, by, bz, cout), dtype=feats.dtype,
                       device=feats.device)
     if bm == 0 or cout == 0:
@@ -95,18 +201,18 @@ def brick_conv3(feats: torch.Tensor, nbr: torch.Tensor,
         return out.zero_()
     lib = LIB.load()
     with torch.cuda.device(feats.device):
-        # occupied voxel rows first (ascending), then the empty ones, and
-        # their count, all on the device: the kernel computes only the
-        # occupied rows and writes zeros to the rest
-        occ_flat = occ.reshape(-1)
-        n_occ = occ_flat.sum(dtype=torch.int32)
-        order = torch.argsort(torch.logical_not(occ_flat).to(torch.uint8),
-                              stable=True).to(torch.int32)
+        if schedule is None:
+            # a source whose features are all zero adds nothing to any sum
+            schedule = row_order(occ, nbr, feats.any(-1))
+        order, n_occ, masks = schedule
+        aligned = feats.data_ptr() % 16 == 0 and \
+            weights.data_ptr() % 16 == 0
+        kind = KINDS[instance(feats.dtype, c, cout, aligned)]
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dropclip_brick_conv3(
             feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-            order.data_ptr(), n_occ.data_ptr(), out.data_ptr(), bm, bx, by,
-            bz, c, cout, _DTYPES[feats.dtype], stream)
+            order.data_ptr(), n_occ.data_ptr(), masks.data_ptr(),
+            out.data_ptr(), bm, bx, by, bz, c, cout, kind, stream)
     LIB.check(err, "brick_conv3")
     brick_conv3.launches += 1
     return out

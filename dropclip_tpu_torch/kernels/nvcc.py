@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -44,16 +44,24 @@ class CudaLibrary:
     also kept beside the library for a later process that finds it
     built."""
 
-    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
+                 defines: Tuple[str, ...] = ()):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self._bind = bind
         self._lib = None
+        self.flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
         self.build_log = ""
+
+    def variant(self, *defines: str) -> "CudaLibrary":
+        """The same source built apart with preprocessor ``defines``
+        (``"NAME=value"``), e.g. a measurement probe; not registered
+        with ``library``."""
+        return CudaLibrary(self.name, self._bind, defines)
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                                + " ".join(self.flags).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.name}_{digest[:16]}.so"
 
     def build(self) -> Path:
@@ -67,7 +75,7 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)]
+        cmd = [find_nvcc(), *self.flags, "-o", tmp, str(self.source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         self.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:

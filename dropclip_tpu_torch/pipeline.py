@@ -59,9 +59,10 @@ def make_clip_sim(cfg, device=None, seed: int = 0
 
     if cfg.clip_checkpoint != "random":
         raise NotImplementedError(
-            "reading CLIP checkpoint files comes with the ingest slice "
-            "(ROADMAP queue 1 item 14); load a state dict from "
-            "convert.clip_text_state_dict instead")
+            "CLIP checkpoint files are not read yet: reading them comes "
+            "with the port of teachers/convert.py (ROADMAP queue 1 item "
+            "6); load a state dict from convert.clip_text_state_dict "
+            "instead")
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = build_clip_text(cfg.clip_model or "ViT-L/14@336px",

@@ -22,12 +22,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.brick_conv3 import brick_conv3
+from ..kernels.brick_conv3 import brick_conv3, row_order
 from .bricks import (BrickLevel, BrickTopology, brick_conv, brick_down_conv,
                      brick_up_conv, fold_topology, gather_points,
                      scatter_points)
 from .unet import (UNET_ARCHS, ConvKernel, MaskedBatchNorm,
                    reset_student_parameters)
+
+Schedule = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class BConv(ConvKernel):
@@ -37,11 +39,19 @@ class BConv(ConvKernel):
         super().__init__(ksize ** 3, cin, cout)
         self.ksize = ksize
 
-    def forward(self, x: torch.Tensor, level: BrickLevel) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level: BrickLevel,
+                schedule: Optional[Schedule] = None) -> torch.Tensor:
         w = self.kernel.to(x.dtype)
         if self.ksize == 3:
-            return brick_conv3(x, level.nbr, w, level.occ)
+            return brick_conv3(x, level.nbr, w, level.occ, schedule)
         return brick_conv(x, level, w, ksize=self.ksize)
+
+
+def level_schedule(level: BrickLevel) -> Optional[Schedule]:
+    """K1's row schedule of a level on the card (``row_order``), shared by
+    every k3 conv of the level: each of their inputs vanishes off ``occ``,
+    as ``brick_conv3``'s contract asks. None on the CPU."""
+    return row_order(level.occ, level.nbr) if level.occ.is_cuda else None
 
 
 class BConvDown(ConvKernel):
@@ -84,9 +94,10 @@ class BasicBlockB(nn.Module):
             self.downsample_conv = BConv1x1(cin, planes * self.expansion)
             self.downsample_norm = MaskedBatchNorm(planes * self.expansion)
 
-    def forward(self, x: torch.Tensor, level: BrickLevel) -> torch.Tensor:
-        out = F.relu(self.norm1(self.conv1(x, level), level.occ))
-        out = self.norm2(self.conv2(out, level), level.occ)
+    def forward(self, x: torch.Tensor, level: BrickLevel,
+                schedule: Optional[Schedule] = None) -> torch.Tensor:
+        out = F.relu(self.norm1(self.conv1(x, level, schedule), level.occ))
+        out = self.norm2(self.conv2(out, level, schedule), level.occ)
         residual = x
         if hasattr(self, "downsample_conv"):
             residual = self.downsample_norm(
@@ -109,10 +120,11 @@ class BottleneckB(nn.Module):
             self.downsample_conv = BConv1x1(cin, planes * self.expansion)
             self.downsample_norm = MaskedBatchNorm(planes * self.expansion)
 
-    def forward(self, x: torch.Tensor, level: BrickLevel) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level: BrickLevel,
+                schedule: Optional[Schedule] = None) -> torch.Tensor:
         occ = level.occ
         out = F.relu(self.norm1(self.conv1(x, occ), occ))
-        out = F.relu(self.norm2(self.conv2(out, level), occ))
+        out = F.relu(self.norm2(self.conv2(out, level, schedule), occ))
         out = self.norm3(self.conv3(out, occ), occ)
         residual = x
         if hasattr(self, "downsample_conv"):
@@ -163,9 +175,9 @@ class MinkUNetBricks(nn.Module):
             cin = planes * exp
         return cin
 
-    def _stage(self, name, x, level, n_blocks):
+    def _stage(self, name, x, level, schedule, n_blocks):
         for i in range(n_blocks):
-            x = getattr(self, f"{name}_{i}")(x, level)
+            x = getattr(self, f"{name}_{i}")(x, level, schedule)
         return x
 
     def forward(self, topo: BrickTopology, x: torch.Tensor):
@@ -174,6 +186,7 @@ class MinkUNetBricks(nn.Module):
         bshape0 = tuple(topo.levels[0].occ.shape[2:5])
         topo = fold_topology(topo)
         lv = topo.levels
+        sched = [level_schedule(level) for level in lv]
         dense = scatter_points(x.reshape(bsz * m, -1), topo.point_row,
                                topo.point_within, bsz * cap0, bshape0)
 
@@ -184,7 +197,8 @@ class MinkUNetBricks(nn.Module):
             out = getattr(self, f"conv{s + 1}")(out, topo.group_maps[s],
                                                 lv[s + 1])
             out = F.relu(getattr(self, f"bn{s + 1}")(out, lv[s + 1].occ))
-            out = self._stage(f"block{s + 1}", out, lv[s + 1], self.layers[s])
+            out = self._stage(f"block{s + 1}", out, lv[s + 1],
+                              sched[s + 1], self.layers[s])
             skips.append(out)
 
         skip_feats = [skips[2], skips[1], skips[0], out_p1]
@@ -194,7 +208,7 @@ class MinkUNetBricks(nn.Module):
                 out, topo.parent_maps[lvl], topo.octants[lvl], lv[lvl])
             out = F.relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].occ))
             out = torch.cat([out, skip_feats[d]], dim=-1)
-            out = self._stage(f"block{5 + d}", out, lv[lvl],
+            out = self._stage(f"block{5 + d}", out, lv[lvl], sched[lvl],
                               self.layers[4 + d])
 
         def to_points(f):

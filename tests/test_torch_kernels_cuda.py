@@ -19,7 +19,8 @@ import torch
 from dropclip_tpu_torch.data.synthetic import (make_tabletop_coords,
                                                make_volumetric_coords)
 from dropclip_tpu_torch.kernels.brick_conv3 import (brick_conv3,
-                                                    brick_conv3_plain)
+                                                    brick_conv3_plain,
+                                                    instance, row_order)
 from dropclip_tpu_torch.kernels.pillar_conv3 import (pillar_conv3,
                                                      pillar_conv3_plain)
 from dropclip_tpu_torch.ops import attention as att
@@ -100,6 +101,178 @@ def test_k1_reads_misses_as_zeros(cuda):
                             occ)
     torch.testing.assert_close(got, ref, rtol=1e-4,
                                atol=1e-4 * float(ref.abs().max()))
+
+
+def test_k1_float32_wide_magnitudes(cuda):
+    """3xTF32 keeps float32 accuracy where 1xTF32 would not: features and
+    weights whose magnitudes span 1e-3 to 1e3 (log-uniform, random sign)
+    at the widest main-path conv, to the float32 limit (rtol 1e-4, atol
+    1e-4 * max|ref|)."""
+    lv = _folded_level((4, 4, 2), level=0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def spread(shape):
+        mag = 10.0 ** (torch.rand(shape, generator=gen, device=cuda) * 6 - 3)
+        return mag * torch.randn(shape, generator=gen, device=cuda).sign()
+
+    c, cout = 416, 384
+    x = spread(tuple(lv.occ.shape) + (c,)) * lv.occ[..., None]
+    w = spread((27, c, cout)) * 1e-3
+    got = brick_conv3(x, lv.nbr, w, lv.occ)
+    ref = brick_conv3_plain(x, lv.nbr, w, lv.occ)
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("upper", ["zero", "unoccupied", "occupied"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_skips_taps_no_row_reads(cuda, dtype, upper):
+    """Isolated (4, 4, 2) bricks (every neighbour a miss) occupied in the
+    z = 0 layer only: no row has a source at a dz = -1 tap, and the dz =
+    +1 taps read the z = 1 layer, which holds zeros ("zero"; the kernel
+    skips 18 of 27 taps), nonzero features off the occupied voxels
+    ("unoccupied"; live sources, so nothing is skipped there) or occupied
+    voxels ("occupied"). Each equals the plain version to K1's limits;
+    all-zero features give zeros."""
+    bm, c, cout = 300, 64, 96
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    nbr = torch.full((bm, 27), -1, dtype=torch.int32, device=cuda)
+    nbr[:, 13] = torch.arange(bm, dtype=torch.int32, device=cuda)
+    occ = torch.zeros((bm, 4, 4, 2), dtype=torch.bool, device=cuda)
+    occ[..., 0] = torch.rand((bm, 4, 4), generator=gen, device=cuda) > 0.4
+    if upper == "occupied":
+        occ[..., 1] = torch.rand((bm, 4, 4), generator=gen,
+                                 device=cuda) > 0.7
+    x = torch.randn((bm, 4, 4, 2, c), generator=gen, device=cuda)
+    if upper == "zero":
+        x[..., 1, :] = 0
+    x = x * (occ[..., None] | (upper == "unoccupied"))
+    x = x.to(dtype)
+    w = (torch.randn((27, c, cout), generator=gen, device=cuda)
+         * 0.1).to(dtype)
+    got = brick_conv3(x, nbr, w, occ).float()
+    ref = brick_conv3_plain(x, nbr, w, occ).float()
+    scale = float(ref.abs().max())
+    assert scale > 0
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        assert float((got - ref).abs().max()) <= 1e-2 * scale
+    zeros = brick_conv3(torch.zeros_like(x), nbr, w, occ)
+    assert not bool(zeros.any())
+
+
+def test_k1_float32_long_sums_do_not_drift(cuda):
+    """All-positive features and weights at the widest main-path conv
+    (416 -> 384, 11232 products per output): the tensor cores truncate as
+    they accumulate, and over one mma chain as long as K that bias adds
+    up to about 2e-4 of each sum, outside the float32 limit (rtol 1e-4,
+    atol 1e-4 * max|ref|); K1 adds each step's short chain in
+    round-to-nearest float32 and stays inside it."""
+    lv = _folded_level((4, 4, 2), level=0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    c, cout = 416, 384
+    x = torch.rand(tuple(lv.occ.shape) + (c,), generator=gen,
+                   device=cuda) * lv.occ[..., None]
+    w = torch.rand((27, c, cout), generator=gen, device=cuda) / (27 * c)
+    got = brick_conv3(x, lv.nbr, w, lv.occ)
+    ref = brick_conv3_plain(x, lv.nbr, w, lv.occ)
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_shared_schedule_matches_plain(cuda, dtype):
+    """The level's ``row_order`` passed in, as the student shares it, on
+    features that vanish off ``occ``: the same result as the plain version
+    to K1's limits; a schedule of another shape raises."""
+    lv = _folded_level((4, 4, 2), level=1)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = (torch.randn(tuple(lv.occ.shape) + (64,), generator=gen,
+                     device=cuda) * lv.occ[..., None]).to(dtype)
+    w = (torch.randn((27, 64, 128), generator=gen, device=cuda)
+         * 0.05).to(dtype)
+    sched = row_order(lv.occ, lv.nbr)
+    got = brick_conv3(x, lv.nbr, w, lv.occ, sched).float()
+    ref = brick_conv3_plain(x, lv.nbr, w, lv.occ).float()
+    scale = float(ref.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        assert float((got - ref).abs().max()) <= 1e-2 * scale
+    with pytest.raises(ValueError):
+        brick_conv3(x, lv.nbr, w, lv.occ, (sched[0][1:],) + sched[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_brick_student_keeps_the_schedule_contract(cuda, dtype, monkeypatch):
+    """MinkUNet14D at full width on the card: the forward with each level's
+    shared row schedule (``unet_bricks.level_schedule``) gives exactly the
+    output of the same forward with ``schedule=None`` in every K1 call,
+    where the wrapper takes liveness from the features. A student whose
+    conv inputs did not vanish off ``occ`` would differ."""
+    from dropclip_tpu_torch.core.config import CfgNode
+    from dropclip_tpu_torch.distill.engine import (build_student_for,
+                                                   build_topology)
+    from dropclip_tpu_torch.sparse import unet_bricks
+
+    coords, mask = make_tabletop_coords(np.random.RandomState(4), 2, 2048,
+                                        n_occ=1600, ext=24)
+    caps = bricks.autotune_brick_capacities(coords, mask,
+                                            brick_shape=(4, 4, 2))
+    cfg = CfgNode(dict(arch_3d="MinkUNet14D", feat_dim=64, use_color=True,
+                       brick_shape=[4, 4, 2], brick_capacities=list(caps)))
+    model = build_student_for(
+        cfg, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    topo = build_topology(cfg, torch.as_tensor(coords, device=cuda),
+                          torch.as_tensor(mask, device=cuda))
+    feats = (torch.randn((2, 2048, 6), generator=torch.Generator()
+                         .manual_seed(3)) * torch.as_tensor(mask)[..., None])
+    feats = feats.to(cuda, dtype)
+    outs = []
+    for shared in (True, False):
+        if not shared:
+            monkeypatch.setattr(unet_bricks, "level_schedule",
+                                lambda level: None)
+        before = brick_conv3.launches
+        with torch.no_grad():
+            outs.append(model(topo, feats))
+        assert brick_conv3.launches - before == 16
+    assert float(outs[0].float().abs().max()) > 0
+    assert torch.equal(outs[0], outs[1])
+
+
+# demangled kernel name parts of each instance
+K1_KERNELS = {"tf32x3": ("brick_conv3_mma", "Tf32x3, true"),
+              "tf32x3_ragged": ("brick_conv3_mma", "Tf32x3, false"),
+              "bf16": ("brick_conv3_mma", "Bf16Wgmma, true"),
+              "bf16_ragged": ("brick_conv3_mma", "Bf16Wgmma, false")}
+
+
+@pytest.mark.parametrize("dtype,c,cout", [(torch.float32, 32, 64),
+                                          (torch.float32, 3, 200),
+                                          (torch.bfloat16, 32, 64),
+                                          (torch.bfloat16, 3, 200)])
+def test_k1_dtypes_reach_their_instance(cuda, dtype, c, cout):
+    """The profiler names the kernel that ran, and it is the one that
+    ``instance(dtype, C, Cout)`` picks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    lv = _folded_level((4, 4, 2), level=1)
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    x = (torch.randn(tuple(lv.occ.shape) + (c,), generator=gen,
+                     device=cuda) * lv.occ[..., None]).to(dtype)
+    w = torch.randn((27, c, cout), generator=gen, device=cuda).to(dtype)
+    brick_conv3(x, lv.nbr, w, lv.occ)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        brick_conv3(x, lv.nbr, w, lv.occ)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "brick_conv3" in e.key]
+    parts = K1_KERNELS[instance(dtype, c, cout)]
+    assert names and all(all(p in n for p in parts) for n in names), names
 
 
 def test_k1_wrapper_raises_on_what_it_does_not_take(cuda):
