@@ -34,9 +34,11 @@
    range) at the same full width; site capacities and pillar_z0 fitted
    over all 8 with the pipeline's own rule; K2 against its plain version
    at the 16 k3 conv shapes of a real pillar forward (float32 and bf16,
-   random scale, bias and relu, a random-occupancy case, and a planted
-   fault: the dz = -1 and +1 taps swapped), timed with the column gather
-   + cuDNN ``conv1d`` yardstick; ``ground`` over the 8 scenes (K2 16
+   random scale, bias and relu, each level's shared row schedule, a
+   random-occupancy case, and a planted fault: the dz = -1 and +1 taps
+   swapped), both dtypes timed with the column gather + cuDNN ``conv1d``
+   yardstick and a tensor-core bound, 3xTF32 for float32, the row
+   schedules included; ``ground`` over the 8 scenes (K2 16
    times per forward, K6 25 per encode, nothing dropped); one request on
    the card against the CPU; the pillar engine against the brick engine
    on one scene with the same weights; a profile of one request;
@@ -614,15 +616,16 @@ def profile_phase(cases, tags, report, trace=None):
                 ROOT, "chiprun_out", f"trace_{name}.json"))
 
 
-def make_volumetric_clouds(n_scenes):
-    """Bin and shelf clouds: 6000 voxels of solid boxes through a 32-voxel
-    z range at 5 cm (``make_volumetric_coords(rng, 8, 8192, n_occ=6000,
-    ext=20, zext=32)``), one jittered point per voxel plus a second for
-    half of them."""
+def make_volumetric_clouds(n_scenes, n_occ=6000):
+    """Bin and shelf clouds: ``n_occ`` voxels of solid boxes through a
+    32-voxel z range at 5 cm (``make_volumetric_coords(rng, n_scenes,
+    8192, n_occ, ext=20, zext=32)``), one jittered point per voxel plus a
+    second for half of them; the pipeline's voxelization keeps about 86%
+    of the voxels."""
     from dropclip_tpu_torch.data.synthetic import make_volumetric_coords
 
     rng = np.random.RandomState(SEED + 5)
-    coords, mask = make_volumetric_coords(rng, n_scenes, 8192, n_occ=6000,
+    coords, mask = make_volumetric_coords(rng, n_scenes, 8192, n_occ=n_occ,
                                           ext=20, zext=32)
     clouds, rgbs = [], []
     for b in range(n_scenes):
@@ -632,6 +635,90 @@ def make_volumetric_clouds(n_scenes):
         clouds.append(xyz.astype(np.float32))
         rgbs.append(rng.rand(len(xyz), 3).astype(np.float32))
     return clouds, rgbs
+
+
+def pillar_pipeline(cfg, clouds, rgbs, clip_sim):
+    """The pillar-engine pipeline on the card (the config with
+    sparse_backend pillars) with weights from SEED, pillar_z0 and site
+    capacities fitted over all the scenes with the pipeline's own rule."""
+    from dropclip_tpu_torch.pipeline import (GroundingPipeline,
+                                             fit_pillar_shapes)
+    from dropclip_tpu_torch.sparse.pillar_topology import \
+        build_pillar_topology
+
+    pcfg = type(cfg)(dict(cfg, sparse_backend="pillars"))
+    ppipe = GroundingPipeline(pcfg, clip_sim=clip_sim, device="cuda",
+                              seed=SEED)
+    vox = [ppipe._host_voxelize(x, r)[0] for x, r in zip(clouds, rgbs)]
+    ppipe.pillar_z0, ppipe.pillar_caps = fit_pillar_shapes([
+        build_pillar_topology(v.coords, v.mask, device="cpu") for v in vox])
+    print(f"volumetric scenes: {[int(v.mask.sum()) for v in vox]} voxels; "
+          f"pillar_z0 {ppipe.pillar_z0}, site capacities "
+          f"{ppipe.pillar_caps} (fitted over all {len(vox)})", flush=True)
+    return pcfg, ppipe
+
+
+def k2_cases(ppipe, clouds, rgbs):
+    """The 16 k3 convs of a pillar forward on volumetric scene 0:
+    [(i, level, C, Cout, PillarLevel, occupied pairs, schedule)], where the
+    pairs are the (occupied output slot, occupied source slot) pairs one tap
+    apart, the work this data needs, and the schedule is the level's
+    ``row_order`` as the student shares it (None for a checkout without
+    one)."""
+    from dropclip_tpu_torch.kernels import pillar_conv3 as k2
+    from dropclip_tpu_torch.sparse.pillar_ops import gather_rows, z_shift
+    from dropclip_tpu_torch.sparse.pillar_topology import \
+        build_pillar_topology
+
+    vox = ppipe._host_voxelize(clouds[0], rgbs[0])[0]
+    topo = build_pillar_topology(vox.coords, vox.mask, z0=ppipe.pillar_z0,
+                                 site_capacities=ppipe.pillar_caps,
+                                 device="cuda")
+    row_order = getattr(k2, "row_order", None)
+    scheds, cases = {}, []
+    for i, (lvl, c, cout) in enumerate(main_path_shapes(ppipe.model)):
+        lv = topo.levels[lvl]
+        occf = lv.occ.float()
+        src = gather_rows(occf, lv.nbr9)  # (P, 9, Z)
+        taps = sum(z_shift(src, dz, axis=-1) for dz in (-1, 0, 1)).sum(1)
+        if lvl not in scheds:
+            scheds[lvl] = row_order and row_order(lv.occ)
+        cases.append((i, lvl, c, cout, lv, float((taps * occf).sum()),
+                      scheds[lvl]))
+    return cases
+
+
+def k2_schedule_ms(cases):
+    """Device time of one forward's K2 row schedules: ``row_order`` once
+    per distinct level, as the student computes them."""
+    from dropclip_tpu_torch.kernels import pillar_conv3 as k2
+
+    if not hasattr(k2, "row_order"):
+        return 0.0
+    levels = {lvl: lv for _, lvl, _, _, lv, _, _ in cases}
+    return sum(cuda_ms(lambda: k2.row_order(lv.occ), 10)
+               for lv in levels.values())
+
+
+def k2_inputs(lv, c, cout, dtype, gen):
+    """Seeded features (zero on empty slots, as the student gives them),
+    He-scaled weights, and a random scale and bias for one K2 call:
+    (feats, nbr, weights, occ, scale, bias)."""
+    p, z = lv.occ.shape
+    x = (torch.randn((p, z, c), generator=gen, device="cuda")
+         * lv.occ[..., None]).to(dtype)
+    w = (torch.randn((9, 3, c, cout), generator=gen, device="cuda")
+         * (2.0 / (27 * cout)) ** 0.5).to(dtype)
+    sc = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+    bi = 0.1 * torch.randn(cout, generator=gen, device="cuda")
+    return (x, lv.nbr9, w, lv.occ, sc, bi)
+
+
+def k2_call(conv, args, relu, sched):
+    """One K2 call with the level's shared schedule, where there is one."""
+    if sched is None:
+        return conv(*args, relu=relu)
+    return conv(*args, relu=relu, schedule=sched)
 
 
 def k2_limits(got, ref, dtype):
@@ -652,117 +739,123 @@ def k2_limits(got, ref, dtype):
 def k2_phase(ppipe, clouds, rgbs, report):
     """K2 against its plain version at the 16 k3 conv shapes of a pillar
     forward on volumetric scene 0, float32 and bf16, with random scale,
-    bias and relu; per shape also a random occupancy (float32) and the
-    planted fault (dz = -1 and +1 taps swapped), which must fail the limit
-    the kernel passes. Times: kernel, plain version, and the yardstick the
-    port never calls: the column gather (P, 9*C, Z) and one cuDNN
-    ``conv1d`` (kernel 3, padding 1, TF32 off) with the same epilogue."""
+    bias and relu and the level's shared schedule; per shape also a random
+    occupancy (float32, no schedule) and the planted fault (dz = -1 and +1
+    taps swapped), which must fail the limit the kernel passes. Times, in
+    both dtypes: kernel, plain version, and the yardstick the port never
+    calls: the column gather (P, 9*C, Z) and one cuDNN ``conv1d`` (kernel
+    3, padding 1, TF32 off) with the same epilogue; the bound by
+    ``k1_bound``'s rule (float32 at 3xTF32). The per-forward sums include
+    the 5 row schedules."""
     import torch.nn.functional as F
 
     from dropclip_tpu_torch.kernels.pillar_conv3 import (pillar_conv3,
                                                          pillar_conv3_plain)
-    from dropclip_tpu_torch.sparse.pillar_ops import gather_rows, z_shift
-    from dropclip_tpu_torch.sparse.pillar_topology import \
-        build_pillar_topology
+    from dropclip_tpu_torch.sparse.pillar_ops import gather_rows
 
-    vox = ppipe._host_voxelize(clouds[0], rgbs[0])[0]
-    topo = build_pillar_topology(vox.coords, vox.mask, z0=ppipe.pillar_z0,
-                                 site_capacities=ppipe.pillar_caps,
-                                 device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                     "library_ms": 0.0}
-    max_err, worst_fault = 0.0, float("inf")
-    for i, (lvl, c, cout) in enumerate(main_path_shapes(ppipe.model)):
-        lv = topo.levels[lvl]
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    tot = {dt: dict.fromkeys(keys, 0.0) for dt in ("f32", "bf16")}
+    max_err = {"f32": 0.0, "bf16": 0.0}
+    rows, worst_fault = [], float("inf")
+    cases = k2_cases(ppipe, clouds, rgbs)
+    for i, lvl, c, cout, lv, pairs, sched in cases:
         p, z = lv.occ.shape
-        occf = lv.occ.float()
-        # data-needed work: occupied (output slot, occupied source) pairs
-        src = gather_rows(occf, lv.nbr9)  # (P, 9, Z)
-        taps = sum(z_shift(src, dz, axis=-1) for dz in (-1, 0, 1)).sum(1)
-        pairs = float((taps * occf).sum())
         relu = i % 2 == 0
         row = dict(shape=i, level=lvl, p=p, z=z, c=c, cout=cout, relu=relu,
-                   occupied=int(lv.occ.sum()), pairs=pairs)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn((p, z, c), generator=gen, device="cuda")
-                 * occf[..., None]).to(dtype)
-            w = (torch.randn((9, 3, c, cout), generator=gen, device="cuda")
-                 * (2.0 / (27 * cout)) ** 0.5).to(dtype)
-            sc = 0.5 + torch.rand(cout, generator=gen, device="cuda")
-            bi = 0.1 * torch.randn(cout, generator=gen, device="cuda")
-            args = (x, lv.nbr9, w, lv.occ, sc, bi)
-            ok, err, scale = k2_limits(pillar_conv3(*args, relu=relu),
-                                       pillar_conv3_plain(*args, relu=relu),
-                                       dtype)
+                   occupied=int(lv.occ.sum()), pairs=pairs,
+                   flops_needed=2.0 * pairs * c * cout,
+                   flops_rows=2.0 * int(lv.occ.sum()) * 27 * c * cout,
+                   flops_padded=2.0 * p * z * 27 * c * cout)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            args = k2_inputs(lv, c, cout, dtype, gen)
+            x, _, w, _, sc, bi = args
+            ref = pillar_conv3_plain(*args, relu=relu)
+            ok, err, scale = k2_limits(k2_call(pillar_conv3, args, relu,
+                                               sched), ref, dtype)
             check(ok, f"K2 {dtype} shape {i} (L{lvl} {c}->{cout}, P {p}, Z "
                   f"{z}): max err {err} vs max|ref| {scale}")
             swapped = (x, lv.nbr9, w.flip(1).contiguous(), lv.occ, sc, bi)
-            f_ok, f_err, _ = k2_limits(pillar_conv3(*swapped, relu=relu),
-                                       pillar_conv3_plain(*args, relu=relu),
-                                       dtype)
+            f_ok, f_err, _ = k2_limits(k2_call(pillar_conv3, swapped, relu,
+                                               sched), ref, dtype)
             check(not f_ok, f"K2 {dtype} shape {i}: the limit does not see "
                   f"swapped z taps (err {f_err})")
             worst_fault = min(worst_fault, f_err / scale)
-            tag = "f32" if dtype == torch.float32 else "bf16"
-            row.update({f"{tag}_max_abs_err": err, f"{tag}_rel_err":
-                        err / scale, f"{tag}_fault_rel_err": f_err / scale})
-            if dtype != torch.float32:
-                continue
-            rocc = torch.rand((p, z), generator=gen, device="cuda") < 0.5
-            r_args = (x, lv.nbr9, w, rocc, sc, bi)
-            r_ok, r_err, r_scale = k2_limits(
-                pillar_conv3(*r_args, relu=relu),
-                pillar_conv3_plain(*r_args, relu=relu), dtype)
-            check(r_ok, f"K2 f32 shape {i} with random occupancy: max err "
-                  f"{r_err} vs max|ref| {r_scale}")
-            max_err = max(max_err, err)
+            max_err[tag] = max(max_err[tag], err)
             es = x.element_size()
             nbytes = ((x.numel() + w.numel() + p * z * cout) * es
                       + lv.nbr9.numel() * 4 + lv.occ.numel() + 2 * cout * 4)
-            flops = 2.0 * pairs * c * cout
-            bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
+            bound, by_what = k1_bound(row["flops_needed"], nbytes, dtype)
             w1 = w.permute(3, 0, 2, 1).reshape(cout, 9 * c, 3).contiguous()
 
             def library():
                 cols = gather_rows(x, lv.nbr9).permute(0, 1, 3, 2)
                 y = F.conv1d(cols.reshape(p, 9 * c, z), w1, padding=1)
                 y = y.transpose(1, 2) * sc + bi
-                return (torch.relu(y) if relu else y) * lv.occ[..., None]
+                return ((torch.relu(y) if relu else y)
+                        * lv.occ[..., None]).to(dtype)
 
-            lib_ok, lib_err, _ = k2_limits(
-                library(), pillar_conv3_plain(*args, relu=relu), dtype)
-            check(lib_ok, f"K2 yardstick shape {i} disagrees ({lib_err})")
-            row.update(
-                ms=cuda_ms(lambda: pillar_conv3(*args, relu=relu), 5),
+            lib_ok, lib_err, _ = k2_limits(library(), ref, dtype)
+            check(lib_ok, f"K2 yardstick {dtype} shape {i} disagrees "
+                  f"({lib_err})")
+            row[tag] = dict(
+                max_abs_err=err, rel_err=err / scale,
+                fault_rel_err=f_err / scale,
+                ms=cuda_ms(lambda: k2_call(pillar_conv3, args, relu, sched),
+                           5),
                 plain_ms=cuda_ms(lambda: pillar_conv3_plain(*args,
                                                             relu=relu),
                                  2, warmup=1),
                 library_ms=cuda_ms(library, 3, warmup=1), bound_ms=bound,
-                bound_by="operations" if flops / PEAK_FLOPS[dtype]
-                > nbytes / PEAK_BYTES else "bytes", flops_needed=flops,
-                flops_rows=2.0 * row["occupied"] * 27 * c * cout,
-                flops_padded=2.0 * p * z * 27 * c * cout, bytes=nbytes,
-                random_occ_max_abs_err=r_err)
-            for k in tot:
-                tot[k] += row[k]
+                bound_by=by_what, bytes=nbytes)
+            if dtype == torch.float32:
+                rocc = torch.rand((p, z), generator=gen, device="cuda") < 0.5
+                r_args = (x, lv.nbr9, w, rocc, sc, bi)
+                r_ok, r_err, r_scale = k2_limits(
+                    pillar_conv3(*r_args, relu=relu),
+                    pillar_conv3_plain(*r_args, relu=relu), dtype)
+                check(r_ok, f"K2 f32 shape {i} with random occupancy: max "
+                      f"err {r_err} vs max|ref| {r_scale}")
+                row[tag]["random_occ_max_abs_err"] = r_err
+            for k in keys:
+                tot[tag][k] += row[tag][k]
+            del args, x, w, ref
         rows.append(row)
+        f, b = row["f32"], row["bf16"]
         print(f"K2 L{lvl} P={p:4d} Z={z:3d} {c:4d}->{cout:4d} relu={relu:d}: "
-              f"f32 err {row['f32_max_abs_err']:.3e} (rel "
-              f"{row['f32_rel_err']:.3e}) bf16 rel {row['bf16_rel_err']:.3e}; "
-              f"swapped-dz fault rel {row['f32_fault_rel_err']:.3e} / "
-              f"{row['bf16_fault_rel_err']:.3e} | kernel {row['ms']:.4f} ms "
-              f"plain {row['plain_ms']:.4f} ms gather+conv1d "
-              f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
+              f"f32 err {f['max_abs_err']:.3e} (rel {f['rel_err']:.3e}) "
+              f"kernel {f['ms']:.4f} plain {f['plain_ms']:.4f} gather+conv1d "
+              f"{f['library_ms']:.4f} bound {f['bound_ms']:.4f} ms "
+              f"({f['bound_by']}) | bf16 rel {b['rel_err']:.3e} kernel "
+              f"{b['ms']:.4f} plain {b['plain_ms']:.4f} gather+conv1d "
+              f"{b['library_ms']:.4f} bound {b['bound_ms']:.4f} ms; "
+              f"swapped-dz fault rel {f['fault_rel_err']:.3e} / "
+              f"{b['fault_rel_err']:.3e}", flush=True)
+    # the row schedules (once per level) are part of every forward's K2
+    sched_ms = k2_schedule_ms(cases)
+    for tag in ("f32", "bf16"):
+        tot[tag]["kernel_only_ms"] = tot[tag]["ms"]
+        tot[tag]["ms"] += sched_ms
+        t = tot[tag]
+        print(f"K2 per pillar forward (16 convs, {tag}): {t['ms']} ms "
+              f"({t['kernel_only_ms']} in the 16 calls, {sched_ms} in 5 row "
+              f"schedules), plain {t['plain_ms']} ms, gather+conv1d "
+              f"{t['library_ms']} ms, bound {t['bound_ms']} ms", flush=True)
+    print(f"K2 smallest planted-fault error {worst_fault} of max|ref|",
+          flush=True)
     report["k2_shapes"] = rows
-    print(f"K2 per pillar forward (16 convs, f32): kernel {tot['ms']} ms, "
-          f"plain {tot['plain_ms']} ms, gather+conv1d {tot['library_ms']} "
-          f"ms, bound {tot['bound_ms']} ms; smallest planted-fault error "
-          f"{worst_fault} of max|ref|", flush=True)
-    del topo
+    report["k2_per_forward"] = dict(tot, schedule_ms=sched_ms)
+    by = {}
+    for row in rows:
+        f = row["f32"]
+        by[f["bound_by"]] = by.get(f["bound_by"], 0.0) + f["bound_ms"]
+    f32 = dict(max_abs_err=max_err["f32"], bound_by=max(by, key=by.get),
+               **tot["f32"])
+    f32.update({f"bf16_{k}": v for k, v in tot["bf16"].items()})
+    f32["bf16_max_abs_err"] = max_err["bf16"]
+    del cases
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max_err, bound_by="operations", **tot)
+    return f32
 
 
 PILLAR_QUERIES = [["the metal bin", "a cardboard box"],
@@ -1438,10 +1531,7 @@ def main():
         return 2
     # fails here, before any output, when run outside a checkout
     from dropclip_tpu_torch.core.config import load_cfg
-    from dropclip_tpu_torch.pipeline import (GroundingPipeline,
-                                             fit_pillar_shapes, make_clip_sim)
-    from dropclip_tpu_torch.sparse.pillar_topology import \
-        build_pillar_topology
+    from dropclip_tpu_torch.pipeline import make_clip_sim
     from dropclip_tpu_torch.tools.preprocess_data import build_extractor
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1490,16 +1580,8 @@ def main():
     torch.cuda.empty_cache()
 
     # the pillar engine: the same config with sparse_backend pillars
-    pcfg = type(cfg)(dict(cfg, sparse_backend="pillars"))
     vclouds, vrgbs = make_volumetric_clouds(BATCH)
-    ppipe = GroundingPipeline(pcfg, clip_sim=clip_sim, device="cuda",
-                              seed=SEED)
-    vvox = [ppipe._host_voxelize(x, r)[0] for x, r in zip(vclouds, vrgbs)]
-    ppipe.pillar_z0, ppipe.pillar_caps = fit_pillar_shapes([
-        build_pillar_topology(v.coords, v.mask, device="cpu") for v in vvox])
-    print(f"volumetric scenes: {[int(v.mask.sum()) for v in vvox]} voxels; "
-          f"pillar_z0 {ppipe.pillar_z0}, site capacities "
-          f"{ppipe.pillar_caps} (fitted over all {BATCH})", flush=True)
+    pcfg, ppipe = pillar_pipeline(cfg, vclouds, vrgbs, clip_sim)
     k2 = k2_phase(ppipe, vclouds, vrgbs, report)
     k2_n, k6_np = pillar_serve_phase(ppipe, vclouds, vrgbs, report)
     pillar_cpu_phase(pcfg, ppipe, vclouds, vrgbs, report)
@@ -1507,7 +1589,7 @@ def main():
     profile_phase(
         (("pillar_ground", lambda: ppipe.ground(vclouds[7], vrgbs[7],
                                                 queries)),),
-        (("K2", "pillar_conv3_kernel"), ("K6", "_ln_rows")), report,
+        (("K2", "pillar_conv3_mma"), ("K6", "_ln_rows")), report,
         trace="pillar_ground")
     del ppipe
     torch.cuda.empty_cache()

@@ -11,105 +11,174 @@
 // where col_j is the (Z, C) column of pillar nbr[p, j] (PILLAR_DIRS order:
 // dx-major, dy-minor, j = 4 the pillar itself), reading zeros where z + dz
 // leaves [0, Z) or the neighbour is a miss (any row outside [0, P); it is
-// never dereferenced).
+// never dereferenced). Without scale and bias (null) there is no affine
+// step.
 //
 // Layouts (all contiguous): feats (P, Z, C) float32 or bfloat16, nbr (P, 9)
 // int32, w (9, 3, C, Cout) in the feats dtype (the canonical (27, C, Cout)
 // kernel reshaped: tap t = 3 * j + dz + 1), scale and bias (Cout) float32,
 // out (P, Z, Cout) in the feats dtype. Any P, Z, C and Cout; float32
-// accumulation. The wrapper also passes the occupied (p, z) slots first,
-// in ascending order, then the empty ones (order, P*Z int32), their count
-// (n_occ, one int32 on the device), so no host synchronisation is needed,
-// and a zeroed float32 scratch of P*Z*Cout for the split sums.
+// accumulation. The wrapper passes the level's row schedule
+// (kernels/pillar_conv3.py::row_order, on the device, so no host sync):
+// the occupied (p, z) slots ascending, then the empty ones (order, P*Z
+// int32), and their count (n_occ, one int32).
 //
-// Bound. The padded product 2*P*Z*27*C*Cout is not the work: the epilogue
-// keeps only occupied slots, and on the student's path every layer masks
-// its output, so only occupied sources contribute. The pillar student
-// passes each level's occupancy (JAX passes all ones and lets the next
-// masked batch norm zero the rest; the block output is the same, and only
-// the conv's own empty slots differ, zeros here). On the volumetric serve
-// scenes a tenth of the level-0 slots are occupied; counting occupied
-// (output, source) pairs the conv does hundreds of FLOPs per byte it must
-// move, so in float32 on the CUDA cores (67 TFLOP/s) it is bound by
-// operations.
+// Bound. Only occupied output slots are kept and only existing sources
+// (neighbour pillar present, z + dz inside the column) are read. On the
+// volumetric serve scenes the 16 convs of one forward are 74.3 GFLOP of
+// occupied (output, source) pairs, hundreds of FLOPs per byte they must
+// move: operations bound it. float32 must stay float32-accurate (rtol
+// 1e-4), so it costs three TF32 products per product: 3 * 74.3 GFLOP at
+// 495 TFLOP/s = 0.450 ms per forward; bf16 74.3 GFLOP at 989 TFLOP/s =
+// 0.075 ms.
 //
-// Design. The Pallas kernel DMAs each pillar's 9 neighbour columns into
-// VMEM and takes the z taps as row shifts of the resident columns, over
-// every slot. Here, as in K1 (csrc/brick_conv3.cu), the output rows are
-// the compacted occupied slots (an implicit GEMM): a tile is 128 occupied
-// rows by 128 output channels, and the GEMM's K axis is (tap, input
-// channel). Per step of 16 channels of one tap, the block gathers the 128
-// source rows of that tap into shared memory, stages the tap's 16 x 128
-// weight slice, and each of 256 threads accumulates an 8 x 8 register
-// tile; the next step's global loads are issued before the current step's
-// FMAs. The source of a row is computed per (tap, row) from (p, z) with
-// the z bounds tested before any address is formed, so z - 1 at z = 0
-// never reads the previous pillar's last slot. Taps whose 128 sources are
-// all misses are skipped.
-//
-// The deep levels have few occupied rows (80 to 1100 on the serve scenes)
-// against K depths up to 27 * 512, so one block per tile left most of the
-// 132 SMs idle (v1: 21.1 ms per forward, NVIDIA H100 80GB HBM3, 700 W,
-// chip_smoke.py). v2 splits K by taps: the grid is persistent (two blocks
-// per SM), and on the device each block reads the occupied count, picks
-// the number of tap groups S (1 to 27) for which the (tile, tap group)
-// items fill one pass of the grid, and walks the items. With S = 1 an
-// item stores its sums, else it adds them to the scratch with atomics (the
-// order of the S float32 sums then varies from run to run). A second kernel applies the epilogue and
-// writes every slot. Tensor cores, TMA and skipping empty sources inside
-// a tap are left for a later version.
+// Design (v3). v2 ran both dtypes on the CUDA cores (an 8 x 8 register
+// tile of float32 FMAs per thread), sorted the slots in every call,
+// cleared a P*Z*Cout float32 scratch and ran a second epilogue kernel
+// over every slot. v3 runs K1's tensor-core core (csrc/sparse_conv3_mma.cuh:
+// float32 through 3xTF32 on mma.sync with short chains added in FADD,
+// bf16 on wgmma from 128B-swizzled tiles, a cp.async ring) under the
+// pillar source map, in one launch per conv:
+//  - the grid is persistent, kMinBlocks blocks per SM. Each block reads
+//    n_occ and splits K by taps on the device, as v2 did: an item is
+//    (tile of 128 rows x 128 channels, tap group), and its K steps are
+//    the group's taps that some row of the tile has a source at, times
+//    the channel chunks. float32 (one block per SM, so the grid runs in
+//    waves) takes the S in [1, 27] whose items finish soonest
+//    (tap_groups): S = 1 where the tiles fill whole waves, S = 27 at the
+//    deep levels, where 8-60 occupied rows face K up to 27 * 384, and
+//    S = 9 for 141 tiles on 132 SMs, which would otherwise run a second
+//    wave of 9 tiles (29% off level 0 there on an H100,
+//    pillar_conv_timing.py --n-occ 7000). bf16 (two blocks per SM)
+//    keeps v2's rule, S = min(27, grid / n_tiles): a lone block per SM
+//    runs faster than half a pair, and the cost model's S = 9 measured
+//    slower at 141 tiles;
+//  - S = 1: the item applies scale, bias and relu to its sums and writes
+//    the occupied rows straight into out;
+//  - S > 1: items add their sums to a float32 scratch tile with atomics
+//    (the order of the S sums varies from run to run) and count
+//    themselves on the tile; the item that completes the count applies
+//    the epilogue and leaves the scratch tile and its count zero again.
+//    The scratch (a tile for each of up to two tiles per SM; more tiles
+//    do not split) and the counts are allocated zero once per device and
+//    stream, so a call allocates and clears nothing and needs no second
+//    launch;
+//  - every block then writes zeros to its share of the empty slots.
+// K1's tap-mask row order (its stage C) is left out: volumetric
+// rows read most of their taps (18-22 of 27 at level 0), so a tile of
+// 128 rows reads 24-27 taps whatever the order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sparse_conv3_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileM = 128;  // output (p, z) rows per tile
-constexpr int kTileN = 128;  // output channels per tile
-constexpr int kChunk = 16;   // input channels per step
-constexpr int kTM = 8;       // rows per thread: ty + 16 * i
-constexpr int kTN = 8;       // channels per thread: tx*4 + j, 64 + tx*4 + j
-constexpr int kTaps = 27;    // 9 xy-directions x 3 z offsets
+// The pillar map: the source slot of (tap t = 3 j + dz + 1, output row r)
+// is slot z + dz of pillar nbr[p, j], where row r holds slot (p, z); -1
+// reads zeros. The z bounds are tested before any address is formed, so
+// z - 1 at z = 0 never reads the previous pillar's last slot.
+struct PillarMap {
+  const int* row_m;  // the slot of each row of the tile, -1 past n_occ
+  const int* __restrict__ nbr;
+  int p, z;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+  __device__ __forceinline__ int operator()(int t, int r) const {
+    const int m = row_m[r];
+    if (m < 0) return -1;
+    const int zz = m % z + t % 3 - 1;
+    if (zz < 0 || zz >= z) return -1;
+    const int nb = nbr[(long long)(m / z) * 9 + t / 3];
+    return nb >= 0 && nb < p ? nb * z + zz : -1;
+  }
+};
+
+// relu?(v * scale[n] + bias[n]); no scale and bias: relu?(v)
+struct Epilogue {
+  const float* __restrict__ scale;
+  const float* __restrict__ bias;
+  int relu;
+
+  __device__ __forceinline__ float operator()(float v, int n) const {
+    if (scale != nullptr) v = v * scale[n] + bias[n];
+    return relu ? fmaxf(v, 0.f) : v;
+  }
+};
+
+// Empty slots get zeros: rows [count, rows) of `order`, a warp per row;
+// kVec: 16-byte stores (Cout a multiple of 16 bytes' elements).
+template <bool kVec, typename T>
+__device__ __forceinline__ void zero_empty(T* __restrict__ out,
+                                           const int* __restrict__ order,
+                                           int count, int rows, int cout) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kE = kVec ? 16 / sizeof(T) : 1;
+  const int lane = threadIdx.x % 32;
+  for (int pos = count + blockIdx.x * kWarps + threadIdx.x / 32; pos < rows;
+       pos += gridDim.x * kWarps) {
+    T* o = out + (long long)order[pos] * cout;
+    for (int n = lane * kE; n < cout; n += 32 * kE) {
+      if constexpr (kVec)
+        *reinterpret_cast<uint4*>(o + n) = make_uint4(0u, 0u, 0u, 0u);
+      else
+        o[n] = zero<T>();
+    }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-pillar_conv3_kernel(const T* __restrict__ feats, const int* __restrict__ nbr,
-                    const T* __restrict__ w, const int* __restrict__ order,
-                    const int* __restrict__ n_occ, float* __restrict__ sums,
-                    int p, int z, int c, int cout) {
-  __shared__ float a_sm[kChunk][kTileM];        // gathered inputs, k-major
-  __shared__ __align__(16) float b_sm[kChunk][kTileN];  // weight slice
-  __shared__ int src[kTaps][kTileM];            // source row per (tap, row)
-  __shared__ int live[kTaps];                   // taps with a real source
-  __shared__ int n_live;
+// The number of tap groups S in [1, 27] whose (tile, group) items finish
+// soonest on `blocks` blocks, one per SM: waves of items times the steps
+// of an item (ceil(27 / S) taps of `chunks` steps, all taps counted as
+// live), plus about two steps of set-up per item and three of atomics
+// where K is split; the fewest groups of equals. S = 1 where the tiles
+// fill whole waves, S = 27 at the deepest levels.
+__device__ __forceinline__ int tap_groups(int n_tiles, int blocks,
+                                          int chunks) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int g = 1; g <= kTaps; ++g) {
+    const long long waves = ((long long)n_tiles * g + blocks - 1) / blocks;
+    const long long cost =
+        waves * ((kTaps + g - 1) / g * chunks + (g > 1 ? 5 : 2));
+    if (best_cost < 0 || cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The tensor-core kernel (csrc/sparse_conv3_mma.cuh) under the pillar map.
+// A persistent grid of kMinBlocks blocks per SM walks the items (row tile,
+// channel tile, tap group); then every block writes zeros to its share of
+// the empty slots.
+template <class M, bool kVec, typename T = typename M::T>
+__global__ void __launch_bounds__(kThreads, M::kMinBlocks)
+pillar_conv3_mma(const T* __restrict__ feats, const int* __restrict__ nbr,
+                 const T* __restrict__ w, const int* __restrict__ order,
+                 const int* __restrict__ n_occ,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias, T* __restrict__ out,
+                 float* __restrict__ sums, int* __restrict__ counts, int p,
+                 int z, int c, int cout, int relu, int split_tiles) {
+  using L = Layout<M>;
+  extern __shared__ __align__(16) uint8_t dyn_smem[];
+  uint8_t* smem = M::kWgmma ? align1024(dyn_smem) : dyn_smem;
+  int* src = reinterpret_cast<int*>(smem + L::kSrcOffset);
+  __shared__ int row_m[kTileM];
+  __shared__ int live[kTaps];
+  __shared__ int tap_list[kTaps];
+  __shared__ int n_live, last;
 
   const int count = *n_occ;
-  const int n_tiles = ((count + kTileM - 1) / kTileM) *
-                      ((cout + kTileN - 1) / kTileN);
-  if (n_tiles == 0) return;
-  // tap groups: as many items as fit in one pass of the grid, at most one
-  // tap each
-  const int groups = min(kTaps, max(1, (int)gridDim.x / n_tiles));
-  const int n_items = n_tiles * groups;
   const int n_cb = (cout + kTileN - 1) / kTileN;
+  const int n_tiles = (count + kTileM - 1) / kTileM * n_cb;
+  const int chunks = (c + L::kBK - 1) / L::kBK;
+  const int groups =
+      n_tiles == 0 || n_tiles > split_tiles ? 1
+      : M::kMinBlocks == 1 ? tap_groups(n_tiles, gridDim.x, chunks)
+                           : min(kTaps, max(1, (int)gridDim.x / n_tiles));
+  const int n_items = n_tiles * groups;
+  const Epilogue epi{scale, bias, relu};
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  // this thread's share of one step: 8 channels of one gathered row
-  // (a_row, a_k0) and 8 output channels of one weight row (b_k, b_n0)
-  const int a_row = tid / 2, a_k0 = (tid % 2) * 8;
-  const int b_k = tid / 16, b_n0 = (tid % 16) * 8;
-  const int chunks = (c + kChunk - 1) / kChunk;
 
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int g = item % groups, tile = item / groups;
@@ -117,149 +186,84 @@ pillar_conv3_kernel(const T* __restrict__ feats, const int* __restrict__ nbr,
     const int t0 = g * kTaps / groups, t1 = (g + 1) * kTaps / groups;
 
     __syncthreads();  // the previous item is done with shared memory
+    if (tid < kTileM) row_m[tid] = pos0 + tid < count ? order[pos0 + tid] : -1;
     if (tid < kTaps) live[tid] = 0;
     __syncthreads();
-    // Source slot of every (tap, output row) of this tap group; -1 reads
-    // zeros.
-    for (int i = tid; i < (t1 - t0) * kTileM; i += kThreads) {
-      const int t = t0 + i / kTileM, r = i % kTileM;
-      const int pos = pos0 + r;
-      int s = -1;
-      if (pos < count) {
-        const int m = order[pos];
-        const int pil = m / z;
-        const int zz = m % z + t % 3 - 1;
-        if (zz >= 0 && zz < z) {
-          const int nb = nbr[(long long)pil * 9 + t / 3];
-          if (nb >= 0 && nb < p) s = nb * z + zz;
-        }
-      }
-      src[t][r] = s;
-      if (s >= 0) live[t] = 1;
-    }
+    fill_src(src, PillarMap{row_m, nbr, p, z}, t0, t1, live);
     __syncthreads();
-    if (tid == 0) {
+    if (tid == 0) {  // the group's taps that some row has a source at
       int n = 0;
       for (int t = t0; t < t1; ++t)
-        if (live[t]) live[n++] = t;
+        if (live[t]) tap_list[n++] = t;
       n_live = n;
     }
     __syncthreads();
-    const int steps = n_live * chunks;
-    if (steps == 0) continue;  // uniform: nothing to add
 
-    float acc[kTM][kTN];
+    float acc[2][8][4];
 #pragma unroll
-    for (int i = 0; i < kTM; ++i)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-    float ra[8], rb[8];
+      for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+    run_steps<M, kVec>(acc, smem, src, tap_list, n_live * chunks, feats, w,
+                       n0, c, cout);
 
-    auto load = [&](int step) {
-      const int t = live[step / chunks], c0 = (step % chunks) * kChunk;
-      const int s = src[t][a_row];
-      const T* pa = feats + (long long)s * c + c0 + a_k0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        ra[j] = (s >= 0 && c0 + a_k0 + j < c) ? to_float(pa[j]) : 0.f;
-      const int k = c0 + b_k;
-      const T* pb = w + ((long long)t * c + k) * cout + n0 + b_n0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        rb[j] = (k < c && n0 + b_n0 + j < cout) ? to_float(pb[j]) : 0.f;
-    };
-
-    load(0);
-    for (int step = 0; step < steps; ++step) {
-      __syncthreads();  // previous step's reads of a_sm / b_sm are done
-#pragma unroll
-      for (int j = 0; j < 8; ++j) a_sm[a_k0 + j][a_row] = ra[j];
-      *reinterpret_cast<float4*>(&b_sm[b_k][b_n0]) =
-          make_float4(rb[0], rb[1], rb[2], rb[3]);
-      *reinterpret_cast<float4*>(&b_sm[b_k][b_n0 + 4]) =
-          make_float4(rb[4], rb[5], rb[6], rb[7]);
-      __syncthreads();
-      if (step + 1 < steps) load(step + 1);
-
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        const float4 b0 = *reinterpret_cast<const float4*>(&b_sm[k][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&b_sm[k][64 + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const float a = a_sm[k][ty + 16 * i];
-          acc[i][0] += a * b0.x;
-          acc[i][1] += a * b0.y;
-          acc[i][2] += a * b0.z;
-          acc[i][3] += a * b0.w;
-          acc[i][4] += a * b1.x;
-          acc[i][5] += a * b1.y;
-          acc[i][6] += a * b1.z;
-          acc[i][7] += a * b1.w;
+    if (groups == 1) {  // the whole sum: epilogue straight into out
+      for_each_pair<M>(acc, [&](int r, int col, float v0, float v1) {
+        const int pos = pos0 + r, n = n0 + col;
+        if (pos >= count || n >= cout) return;
+        T* o = out + (long long)order[pos] * cout + n;
+        if constexpr (kVec) {
+          store2(o, epi(v0, n), epi(v1, n + 1));  // Cout is even
+        } else {
+          store_as(o, epi(v0, n));
+          if (n + 1 < cout) store_as(o + 1, epi(v1, n + 1));
         }
-      }
+      });
+      continue;
     }
-
-    // This group's sums of the tile's occupied rows, by compacted row.
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int pos = pos0 + ty + 16 * i;
-      if (pos >= count) continue;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-        if (n >= cout) continue;
-        float* dst = sums + (long long)pos * cout + n;
-        if (groups == 1)
-          *dst = acc[i][j];
-        else
-          atomicAdd(dst, acc[i][j]);
-      }
+    // Split: add to the tile's float32 scratch; the item that adds the
+    // tile's last group applies the epilogue and leaves the scratch and
+    // the tile's count zero again.
+    float* part = sums + (long long)tile * kTileM * kTileN;
+    for_each_pair<M>(acc, [&](int r, int col, float v0, float v1) {
+      if (pos0 + r >= count || n0 + col >= cout) return;
+      atomicAdd(part + r * kTileN + col, v0);
+      if (n0 + col + 1 < cout) atomicAdd(part + r * kTileN + col + 1, v1);
+    });
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(counts + tile, 1) == groups - 1;
+    __syncthreads();
+    if (!last) continue;
+    __threadfence();
+    for (int i = tid; i < kTileM * kTileN; i += kThreads) {
+      const int pos = pos0 + i / kTileN, n = n0 + i % kTileN;
+      if (pos >= count || n >= cout) continue;
+      const float v = __ldcg(part + i);
+      __stcg(part + i, 0.f);
+      store_as(out + (long long)order[pos] * cout + n, epi(v, n));
     }
+    if (tid == 0) counts[tile] = 0;
   }
+  zero_empty<kVec>(out, order, count, p * z, cout);
 }
 
-// Every slot: occupied ones relu?(sum * scale + bias), empty ones 0.
-template <typename T>
-__global__ void pillar_epilogue_kernel(const float* __restrict__ sums,
-                                       const int* __restrict__ order,
-                                       const int* __restrict__ n_occ,
-                                       const float* __restrict__ scale,
-                                       const float* __restrict__ bias,
-                                       T* __restrict__ out, long long rows,
-                                       int cout, int relu) {
-  const int count = *n_occ;
-  const long long total = rows * cout;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long pos = i / cout;
-    const int n = (int)(i % cout);
-    float y = 0.f;
-    if (pos < count) {
-      y = sums[i] * scale[n] + bias[n];
-      if (relu) y = fmaxf(y, 0.f);
-    }
-    store_as(out + (long long)order[pos] * cout + n, y);
-  }
-}
-
-template <typename T>
-int launch(const void* feats, const int* nbr, const void* w,
-           const float* scale, const float* bias, const int* order,
-           const int* n_occ, float* sums, void* out, int p, int z, int c,
-           int cout, int relu, int n_blocks, cudaStream_t stream) {
-  pillar_conv3_kernel<T><<<n_blocks, kThreads, 0, stream>>>(
+template <class M, bool kVec>
+int launch_mma(const void* feats, const int* nbr, const void* w,
+               const int* order, const int* n_occ, const float* scale,
+               const float* bias, void* out, float* sums, int* counts, int p,
+               int z, int c, int cout, int relu, int n_sm, int split_tiles,
+               cudaStream_t stream) {
+  using T = typename M::T;
+  auto kernel = pillar_conv3_mma<M, kVec>;
+  const cudaError_t attr = set_smem<M>(kernel);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<n_sm * M::kMinBlocks, kThreads, Layout<M>::kBytes, stream>>>(
       static_cast<const T*>(feats), nbr, static_cast<const T*>(w), order,
-      n_occ, sums, p, z, c, cout);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const long long total = (long long)p * z * cout;
-  const long long blocks = (total + 255) / 256;
-  pillar_epilogue_kernel<T><<<(unsigned)(blocks < 8192 ? blocks : 8192), 256,
-                              0, stream>>>(
-      sums, order, n_occ, scale, bias, static_cast<T*>(out),
-      (long long)p * z, cout, relu);
+      n_occ, scale, bias, static_cast<T*>(out), sums, counts, p, z, c, cout,
+      relu, split_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -267,20 +271,37 @@ int launch(const void* feats, const int* nbr, const void* w,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; n_blocks: the persistent grid (two per
-// SM). Returns cudaGetLastError() after the launches (0 = launched).
+// kind: 0 = float32 3xTF32, 1 = float32 3xTF32 with ragged channels,
+// 2 = bfloat16 on wgmma, 3 = bfloat16 on wgmma with ragged channels
+// (kernels/brick_conv3.py::instance). scale and bias may both be null
+// (no affine step). sums (split_tiles x 128 x 128 float32) and counts
+// (split_tiles int32) are zero on entry and left zero. n_sm: the card's
+// SM count. Returns cudaGetLastError() after the launch (0 = launched).
 int dropclip_pillar_conv3(const void* feats, const int* nbr, const void* w,
-                          const float* scale, const float* bias,
-                          const int* order, const int* n_occ, float* sums,
-                          void* out, int p, int z, int c, int cout, int relu,
-                          int dtype, int n_blocks, void* stream) {
+                          const int* order, const int* n_occ,
+                          const float* scale, const float* bias, void* out,
+                          float* sums, int* counts, int p, int z, int c,
+                          int cout, int relu, int kind, int n_sm,
+                          int split_tiles, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(feats, nbr, w, scale, bias, order, n_occ, sums, out,
-                         p, z, c, cout, relu, n_blocks, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(feats, nbr, w, scale, bias, order, n_occ,
-                                 sums, out, p, z, c, cout, relu, n_blocks, s);
+  switch (kind) {
+    case 0:
+      return launch_mma<Tf32x3, true>(feats, nbr, w, order, n_occ, scale,
+                                      bias, out, sums, counts, p, z, c, cout,
+                                      relu, n_sm, split_tiles, s);
+    case 1:
+      return launch_mma<Tf32x3, false>(feats, nbr, w, order, n_occ, scale,
+                                       bias, out, sums, counts, p, z, c,
+                                       cout, relu, n_sm, split_tiles, s);
+    case 2:
+      return launch_mma<Bf16Wgmma, true>(feats, nbr, w, order, n_occ, scale,
+                                         bias, out, sums, counts, p, z, c,
+                                         cout, relu, n_sm, split_tiles, s);
+    case 3:
+      return launch_mma<Bf16Wgmma, false>(feats, nbr, w, order, n_occ, scale,
+                                          bias, out, sums, counts, p, z, c,
+                                          cout, relu, n_sm, split_tiles, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

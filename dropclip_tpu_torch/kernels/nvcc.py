@@ -2,10 +2,10 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` (gitignored) at first
-use, named by a hash of the source and the flags so that an edited
-source rebuilds, and is loaded with ``ctypes``. Nothing is built when a
-module is imported: the CPU tests import every module on a machine
-without ``nvcc``.
+use, named by a hash of the flags, the source and the headers it
+includes, so that an edited source or header rebuilds, and is loaded
+with ``ctypes``. Nothing is built when a module is imported: the CPU
+tests import every module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,6 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def find_nvcc() -> str:
@@ -59,10 +61,27 @@ class CudaLibrary:
         with ``library``."""
         return CudaLibrary(self.name, self._bind, defines)
 
+    def sources(self) -> Tuple[Path, ...]:
+        """The source and every file of ``csrc/`` it includes with quotes,
+        directly or through another include."""
+        found, todo = [], [self.source]
+        while todo:
+            path = todo.pop()
+            if path in found:
+                continue
+            found.append(path)
+            todo += [path.parent / m.group(1) for m in
+                     _INCLUDE.finditer(path.read_text())]
+        return tuple(found)
+
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(self.flags).encode()).hexdigest()
-        return BUILD_DIR / f"lib{self.name}_{digest[:16]}.so"
+        """Named by a hash of the flags and of every source file, so that
+        an edit to a shared header rebuilds each library that includes
+        it."""
+        h = hashlib.sha256(" ".join(self.flags).encode())
+        for path in self.sources():
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
+        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
         """Compile if needed; returns the library's path. Safe against

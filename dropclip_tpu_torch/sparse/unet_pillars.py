@@ -9,7 +9,9 @@ state dict loads into either engine and one seed draws the same weights.
 
 Every k3 conv goes through ``kernels.pillar_conv3`` (K2 on CUDA tensors,
 its plain version on CPU) at any Z, C and Cout; the JAX package gated its
-Pallas kernel on Mosaic's tiling and left it off by default. The k5 stem,
+Pallas kernel on Mosaic's tiling and left it off by default. On the card
+the forward computes K2's row schedule once per level
+(``level_schedule``) and every k3 conv of the level shares it. The k5 stem,
 the k2s2 down/up convs and the 1x1 convs are plain torch ops, as they were
 XLA ops outside any kernel in the JAX package. K2 gets each level's
 occupancy, so it computes only occupied (pillar, z) slots; the masked
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.pillar_conv3 import pillar_conv3
+from ..kernels.pillar_conv3 import Schedule, pillar_conv3, row_order
 from .pillar_ops import pillar_conv_xla, pillar_down_conv, pillar_up_conv
 from .pillar_topology import (PillarLevel, PillarTopology,
                               gather_points_pillar, scatter_points_pillar)
@@ -39,12 +41,18 @@ class PConv(ConvKernel):
     def __init__(self, cin: int, cout: int):
         super().__init__(27, cin, cout)
 
-    def forward(self, x: torch.Tensor, level: PillarLevel) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level: PillarLevel,
+                schedule: Optional[Schedule] = None) -> torch.Tensor:
         c, co = self.kernel.shape[1:]
         w = self.kernel.to(x.dtype).reshape(9, 3, c, co)
-        ones = torch.ones(co, device=x.device)
-        return pillar_conv3(x, level.nbr9, w, level.occ, ones,
-                            torch.zeros_like(ones), relu=False)
+        return pillar_conv3(x, level.nbr9, w, level.occ, relu=False,
+                            schedule=schedule)
+
+
+def level_schedule(level: PillarLevel) -> Optional[Schedule]:
+    """K2's row schedule of a level on the card (``row_order``), shared by
+    every k3 conv of the level. None on the CPU."""
+    return row_order(level.occ) if level.occ.is_cuda else None
 
 
 class PConv5(ConvKernel):
@@ -101,10 +109,11 @@ class PBasicBlock(nn.Module):
             self.downsample_conv = PConv1x1(cin, planes * self.expansion)
             self.downsample_norm = MaskedBatchNorm(planes * self.expansion)
 
-    def forward(self, x: torch.Tensor, level: PillarLevel) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level: PillarLevel,
+                schedule: Optional[Schedule] = None) -> torch.Tensor:
         occ = level.occ
-        out = F.relu(self.norm1(self.conv1(x, level), occ))
-        out = self.norm2(self.conv2(out, level), occ)
+        out = F.relu(self.norm1(self.conv1(x, level, schedule), occ))
+        out = self.norm2(self.conv2(out, level, schedule), occ)
         residual = x
         if hasattr(self, "downsample_conv"):
             residual = self.downsample_norm(self.downsample_conv(x, occ), occ)
@@ -126,10 +135,11 @@ class PBottleneck(nn.Module):
             self.downsample_conv = PConv1x1(cin, planes * self.expansion)
             self.downsample_norm = MaskedBatchNorm(planes * self.expansion)
 
-    def forward(self, x: torch.Tensor, level: PillarLevel) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level: PillarLevel,
+                schedule: Optional[Schedule] = None) -> torch.Tensor:
         occ = level.occ
         out = F.relu(self.norm1(self.conv1(x, occ), occ))
-        out = F.relu(self.norm2(self.conv2(out, level), occ))
+        out = F.relu(self.norm2(self.conv2(out, level, schedule), occ))
         out = self.norm3(self.conv3(out, occ), occ)
         residual = x
         if hasattr(self, "downsample_conv"):
@@ -176,13 +186,14 @@ class MinkUNetPillars(nn.Module):
             cin = planes * exp
         return cin
 
-    def _stage(self, name, x, level, n_blocks):
+    def _stage(self, name, x, level, schedule, n_blocks):
         for i in range(n_blocks):
-            x = getattr(self, f"{name}_{i}")(x, level)
+            x = getattr(self, f"{name}_{i}")(x, level, schedule)
         return x
 
     def forward(self, topo: PillarTopology, x: torch.Tensor) -> torch.Tensor:
         lv = topo.levels
+        sched = [level_schedule(level) for level in lv]
         dense = scatter_points_pillar(x, topo)
         out = self.conv0p1s1(dense, topo.nbr25)
         out_p1 = F.relu(self.bn0(out, lv[0].occ))
@@ -190,7 +201,8 @@ class MinkUNetPillars(nn.Module):
         for s in range(4):
             out = getattr(self, f"conv{s + 1}")(out, topo.child[s])
             out = F.relu(getattr(self, f"bn{s + 1}")(out, lv[s + 1].occ))
-            out = self._stage(f"block{s + 1}", out, lv[s + 1], self.layers[s])
+            out = self._stage(f"block{s + 1}", out, lv[s + 1],
+                              sched[s + 1], self.layers[s])
             skips.append(out)
 
         skip_feats = [skips[2], skips[1], skips[0], out_p1]
@@ -200,7 +212,7 @@ class MinkUNetPillars(nn.Module):
                 out, topo.parent[lvl], topo.xy_parity[lvl])
             out = F.relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].occ))
             out = torch.cat([out, skip_feats[d]], dim=-1)
-            out = self._stage(f"block{5 + d}", out, lv[lvl],
+            out = self._stage(f"block{5 + d}", out, lv[lvl], sched[lvl],
                               self.layers[4 + d])
         return gather_points_pillar(self.final(out, lv[0].occ), topo)
 

@@ -21,8 +21,10 @@ from dropclip_tpu_torch.data.synthetic import (make_tabletop_coords,
 from dropclip_tpu_torch.kernels.brick_conv3 import (brick_conv3,
                                                     brick_conv3_plain,
                                                     instance, row_order)
-from dropclip_tpu_torch.kernels.pillar_conv3 import (pillar_conv3,
+from dropclip_tpu_torch.kernels.pillar_conv3 import (_scratch, pillar_conv3,
                                                      pillar_conv3_plain)
+from dropclip_tpu_torch.kernels.pillar_conv3 import \
+    row_order as pillar_row_order
 from dropclip_tpu_torch.ops import attention as att
 from dropclip_tpu_torch.ops.layernorm import (add_layer_norm,
                                               add_layer_norm_plain,
@@ -645,12 +647,14 @@ def test_k2_z_ends_and_misses_read_zeros(cuda):
     occ = torch.ones((p, z), dtype=torch.bool, device=cuda)
     ones, zeros = torch.ones(cout, device=cuda), torch.zeros(cout,
                                                              device=cuda)
-    got = pillar_conv3(x, nbr, w, occ, ones, zeros, relu=False)
     up = torch.nn.functional.pad(x[:, :-1], (0, 0, 1, 0))
     dn = torch.nn.functional.pad(x[:, 1:], (0, 0, 0, 1))
     ref = up @ w[4, 0] + x @ w[4, 1] + dn @ w[4, 2]
-    torch.testing.assert_close(got, ref, rtol=1e-4,
-                               atol=1e-4 * float(ref.abs().max()))
+    # with a unit scale and zero bias, and without an affine step
+    for affine in ((ones, zeros), ()):
+        got = pillar_conv3(x, nbr, w, occ, *affine, relu=False)
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))
 
 
 def test_k2_limit_sees_swapped_z_taps(cuda):
@@ -680,6 +684,11 @@ def test_k2_wrapper_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         pillar_conv3(x.transpose(0, 1).contiguous().transpose(0, 1), nbr,
                      w, occ, s, b)
+    order, n_occ = pillar_row_order(occ)
+    with pytest.raises(ValueError):
+        pillar_conv3(x, nbr, w, occ, s, b, schedule=(order[1:], n_occ))
+    with pytest.raises(ValueError):
+        pillar_conv3(x, nbr, w, occ, s, b, schedule=(order.cpu(), n_occ))
 
 
 def test_pillar_student_on_the_card_matches_cpu(cuda):
@@ -704,3 +713,171 @@ def test_pillar_student_on_the_card_matches_cpu(cuda):
         assert pillar_conv3.launches - before == (16 if dev == "cuda" else 0)
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-4 * float(
         outs[1].abs().max())
+
+
+def _serve_level(level):
+    """A level of a volumetric scene at chip_smoke.py's size (6000 voxels,
+    z0 80): level 0 at Cout 384 gives 141 tiles (47 rows of tiles), just
+    over one float32 wave of 132 SMs."""
+    coords, mask = make_volumetric_coords(np.random.RandomState(8), 1, 8192,
+                                          n_occ=6000, ext=20, zext=32)
+    return build_pillar_topology(coords[0], mask[0], z0=80,
+                                 device="cuda").levels[level]
+
+
+def _k2_split(lv, c, cout, dtype):
+    """Whether K2 splits K at this level, by the kernel's rule
+    (``csrc/pillar_conv3.cu``): only tiles that fit the scratch split;
+    float32 (one block per SM) takes the tap groups whose items finish
+    soonest (``tap_groups``), bf16 (two per SM) as many as fill its grid
+    once."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_tiles = -(-int(lv.occ.sum()) // 128) * -(-cout // 128)
+    if n_tiles > 2 * n_sm:
+        return False
+    if dtype == torch.bfloat16:
+        return 2 * n_sm // n_tiles >= 2
+    chunks = -(-c // 32)
+    cost = [-(-n_tiles * g // n_sm) * (-(-27 // g) * chunks
+                                        + (5 if g > 1 else 2))
+            for g in range(1, 28)]
+    return cost.index(min(cost)) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_shared_schedule_matches_none(cuda, dtype):
+    """The level's ``row_order`` passed in, as the student shares it:
+    exactly K2's result without one where K is not split, and both within
+    K2's limits of the plain version where it is (their float32 atomics
+    add in another order each run)."""
+    for level, c, cout in ((0, 64, 1024), (0, 416, 384), (3, 256, 256)):
+        lv = _serve_level(level)
+        split = _k2_split(lv, c, cout, dtype)
+        assert split == (level == 3 or dtype == torch.float32 and cout == 384)
+        args = _k2_args(lv, c, cout, dtype, seed=21 + level)
+        shared = pillar_conv3(*args, relu=True,
+                              schedule=pillar_row_order(lv.occ))
+        none = pillar_conv3(*args, relu=True)
+        ref = pillar_conv3_plain(*args, relu=True)
+        torch.cuda.synchronize()
+        if not split:
+            assert torch.equal(shared, none)
+        _k2_close(shared, ref, dtype)
+        _k2_close(none, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("level,c,cout", [(4, 384, 384), (3, 256, 256),
+                                          (2, 32, 64), (1, 20, 136)])
+def test_k2_split_path_matches_plain(cuda, dtype, level, c, cout):
+    """The deep levels (few rows, K up to 27 * 384) split K into tap
+    groups whose sums meet in the scratch: the result is within K2's
+    limits, one launch, and the scratch and its counts are zero again."""
+    lv = _serve_level(level)
+    assert _k2_split(lv, c, cout, dtype)
+    args = _k2_args(lv, c, cout, dtype, seed=31 + level)
+    before = pillar_conv3.launches
+    got = pillar_conv3(*args, relu=level % 2 == 0)
+    ref = pillar_conv3_plain(*args, relu=level % 2 == 0)
+    torch.cuda.synchronize()
+    assert pillar_conv3.launches == before + 1
+    _k2_close(got, ref, dtype)
+    sums, counts, _ = _scratch(got.device,
+                               torch.cuda.current_stream().cuda_stream)
+    assert not bool(sums.any()) and not bool(counts.any())
+
+
+# demangled kernel name parts of each instance
+K2_KERNELS = {"tf32x3": ("pillar_conv3_mma", "Tf32x3, true"),
+              "tf32x3_ragged": ("pillar_conv3_mma", "Tf32x3, false"),
+              "bf16": ("pillar_conv3_mma", "Bf16Wgmma, true"),
+              "bf16_ragged": ("pillar_conv3_mma", "Bf16Wgmma, false")}
+
+
+K2_ONE_LAUNCH_CASES = [(level, dtype, c, cout) for level in (0, 3)
+                       for dtype, c, cout in (("float32", 64, 128),
+                                              ("float32", 3, 200),
+                                              ("bfloat16", 64, 128),
+                                              ("bfloat16", 3, 200))]
+
+
+def _k2_kernels_of_one_call():
+    """For each case of K2_ONE_LAUNCH_CASES: the instance ``instance``
+    picks and the (name, count) of every kernel the profiler saw on the
+    card during one K2 call given the level's schedule. Run in a fresh
+    process: in a pytest process that had run other tests on the card,
+    sessions this short often recorded no kernel at all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dropclip_tpu_torch.kernels.pillar_conv3 import instance as k2_inst
+
+    seen = {}
+    for level, dtype_name, c, cout in K2_ONE_LAUNCH_CASES:
+        dtype = getattr(torch, dtype_name)
+        lv = _serve_level(level)
+        args = _k2_args(lv, c, cout, dtype, seed=c + level)
+        sched = pillar_row_order(lv.occ)
+        pillar_conv3(*args, schedule=sched)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pillar_conv3(*args, schedule=sched)
+            torch.cuda.synchronize()
+        seen[(level, dtype_name, c, cout)] = (
+            k2_inst(dtype, c, cout),
+            [(e.key, e.count) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA])
+    return seen
+
+
+@pytest.fixture(scope="module")
+def k2_one_call_kernels():
+    import multiprocessing
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_k2_kernels_of_one_call)
+
+
+@pytest.mark.parametrize("case", K2_ONE_LAUNCH_CASES)
+def test_k2_one_launch_of_its_instance(cuda, k2_one_call_kernels, case):
+    """With the level's schedule given, a K2 call is one kernel launch on
+    the card and nothing else (no sort, no memset, no second pass), split
+    (level 3) or not; the profiler names that kernel, and it is the
+    instance that ``instance(dtype, C, Cout)`` picks."""
+    picked, kernels = k2_one_call_kernels[case]
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert all(p in kernels[0][0] for p in K2_KERNELS[picked]), kernels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pillar_student_keeps_the_schedule_contract(cuda, dtype,
+                                                    monkeypatch):
+    """MinkUNet14D on the pillar engine on the card: the forward with each
+    level's shared row schedule (``unet_pillars.level_schedule``) gives the
+    output of the same forward with ``schedule=None`` in every K2 call, 16
+    launches each, within K2's limits (the split levels' atomics add in
+    another order each run)."""
+    from dropclip_tpu_torch.core.config import CfgNode
+    from dropclip_tpu_torch.sparse import unet_pillars
+
+    coords, mask = make_volumetric_coords(np.random.RandomState(4), 1, 2048,
+                                          n_occ=1600, ext=12, zext=24)
+    cfg = CfgNode(dict(arch_3d="MinkUNet14D", feat_dim=64, use_color=True))
+    model = unet_pillars.build_student_pillars(
+        cfg, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    topo = build_pillar_topology(coords[0], mask[0], device=cuda)
+    feats = (torch.randn((2048, 6), generator=torch.Generator()
+                         .manual_seed(3)) * torch.as_tensor(mask[0])[:, None])
+    feats = feats.to(cuda, dtype)
+    outs = []
+    for shared in (True, False):
+        if not shared:
+            monkeypatch.setattr(unet_pillars, "level_schedule",
+                                lambda level: None)
+        before = pillar_conv3.launches
+        with torch.no_grad():
+            outs.append(model(topo, feats))
+        assert pillar_conv3.launches - before == 16
+    _k2_close(outs[0], outs[1], dtype)
