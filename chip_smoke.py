@@ -51,7 +51,22 @@
    doubled input (K5); three reduced scenes on the card against the CPU,
    with planted faults that the limits must see; a profile of one scene,
    whose attention launches must all be v3's;
-6. prints the ``kernels`` JSON line, the card line and, last,
+6. train path: the distillation trainer (``distill/engine.py``) at
+   configs/DistilBlender.yaml's recipe and full width (MinkUNet14D,
+   768-d, (4, 4, 2) bricks, 8192 voxels, float32, remat False, random
+   unit 768-d targets under the cosine loss) on batch 8 of tabletop
+   scenes: step 1's gradients through K1 (forward and dgrad) against the
+   plain path (native autograd of the plain conv) with TF32 off, every
+   parameter given a gradient, and a planted fault (dgrad taps not
+   mirrored) that must read far past the limit; five optimizer steps on
+   both paths (losses, nothing dropped, 32 K1 launches per step counted
+   from 0, step time, peak memory, one step split by CUDA events into
+   forward, dgrad, wgrad and the rest, one step under the profiler); the
+   eval step after training against the plain eval; one bf16 step (K1's
+   wgmma instance in forward and dgrad) against the plain arithmetic; the
+   trainer CLI as a module for one epoch of 3 steps on a fake .npz
+   dataset, then resumed from its checkpoint at the next epoch;
+7. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero. Without a CUDA card the
@@ -1524,6 +1539,542 @@ def ingest_profile_phase(extractor, scene, report):
                                           "trace_ingest.json"))
 
 
+
+# --------------------------------------------------------------- train path
+
+TRAIN_STEPS = 5
+TRAIN_GRAD_RTOL = 1e-4  # per tensor, of max|ref|, plus 1e-7
+TRAIN_LOSS_RTOL = 1e-3  # per step, over five steps
+TRAIN_BF16 = 1e-2  # bf16 gradients, of max|ref|
+
+
+class PlainConv3:
+    """``BrickConv3Fn``'s stand-in for the plain path: the plain k3 conv
+    under native autograd (halo gather, unfolded 27-tap matmul), no K1 in
+    the forward or the backward."""
+
+    @staticmethod
+    def apply(x, w, nbr, occ, schedule=None):
+        from dropclip_tpu_torch.kernels.brick_conv3 import brick_conv3_plain
+
+        return brick_conv3_plain(x, nbr, w, occ)
+
+
+class plain_path:
+    """Within the block, the brick student's k3 convs are the plain conv
+    under native autograd (``PlainConv3`` for ``BrickConv3Fn``)."""
+
+    def __enter__(self):
+        from dropclip_tpu_torch.sparse import unet_bricks
+
+        self.saved = unet_bricks.BrickConv3Fn
+        unet_bricks.BrickConv3Fn = PlainConv3
+
+    def __exit__(self, *exc):
+        from dropclip_tpu_torch.sparse import unet_bricks
+
+        unet_bricks.BrickConv3Fn = self.saved
+
+
+class K1Route:
+    """Within the block, ``BrickConv3Fn``'s calls of ``brick_conv3`` go to
+    K1 or to the plain version, separately for the forward and for the
+    backward (dgrad); ``phase`` says which one runs."""
+
+    def __init__(self, forward="k1", backward="k1"):
+        self.route = {"forward": forward, "backward": backward}
+        self.phase = "forward"
+
+    def __enter__(self):
+        from dropclip_tpu_torch.kernels import brick_conv3 as k1
+
+        self.k1, self.saved = k1, k1.brick_conv3
+
+        def routed(x, nbr, w, occ, schedule=None):
+            if self.route[self.phase] == "k1":
+                return self.saved(x, nbr, w, occ, schedule)
+            return k1.brick_conv3_plain(x, nbr, w, occ)
+
+        # the wrapper counts its launches on the module's brick_conv3
+        routed.launches = self.saved.launches
+        k1.brick_conv3 = routed
+        return self
+
+    def __exit__(self, *exc):
+        self.saved.launches = self.k1.brick_conv3.launches
+        self.k1.brick_conv3 = self.saved
+
+
+class unmirrored:
+    """The planted fault of the dgrad identity: taps transposed but not
+    mirrored."""
+
+    def __enter__(self):
+        from dropclip_tpu_torch.kernels import brick_conv3 as k1
+
+        self.k1, self.saved = k1, k1.mirror_taps
+        k1.mirror_taps = lambda t: t.transpose(1, 2).contiguous()
+
+    def __exit__(self, *exc):
+        self.k1.mirror_taps = self.saved
+
+
+def train_setup():
+    """configs/DistilBlender.yaml's recipe at full width (MinkUNet14D,
+    768-d, (4, 4, 2) bricks, 8192-voxel capacity, remat False): batch 8
+    of tabletop scenes (6000 voxels each, bench.py's train shapes),
+    capacities autotuned with slack 1.5, xyz+rgb inputs, random unit
+    768-d targets; the student's weights from SEED on the host."""
+    from dropclip_tpu_torch.core.config import load_cfg
+    from dropclip_tpu_torch.data.synthetic import make_tabletop_coords
+    from dropclip_tpu_torch.distill.engine import (DistilBatch,
+                                                   build_student_for)
+    from dropclip_tpu_torch.sparse.bricks import autotune_brick_capacities
+
+    cfg = load_cfg(os.path.join(ROOT, "configs", "DistilBlender.yaml"))
+    rng = np.random.RandomState(SEED + 7)
+    cap = int(cfg.voxel_capacity)
+    coords, mask = make_tabletop_coords(rng, BATCH, cap, n_occ=6000, ext=40)
+    cfg.brick_capacities = list(autotune_brick_capacities(
+        coords, mask, slack=1.5, brick_shape=(4, 4, 2)))
+    feats = rng.randn(BATCH, cap, 6).astype(np.float32) * mask[..., None]
+    tgt = rng.randn(BATCH, cap, int(cfg.feat_dim)).astype(np.float32)
+    tgt = tgt / np.linalg.norm(tgt, axis=-1, keepdims=True) * mask[..., None]
+    z = np.zeros((BATCH, cap), np.int32)
+    batch = DistilBatch(*(torch.as_tensor(a).cuda() for a in (
+        coords, mask, feats, tgt.astype(np.float32), z, z)))
+    host_model = build_student_for(
+        cfg, generator=torch.Generator().manual_seed(SEED))
+    n_par = sum(p.numel() for p in host_model.parameters())
+    print(f"train: {BATCH} scenes of {int(mask.sum(1).min())}-"
+          f"{int(mask.sum(1).max())} voxels, brick capacities "
+          f"{cfg.brick_capacities}, {n_par} parameters, remat {cfg.remat}",
+          flush=True)
+    return cfg, batch, host_model
+
+
+def step_grads(cfg, host_model, batch, route=None, native=False):
+    """One training forward and backward of a copy of ``host_model`` on
+    the card (the train step without the optimizer): ({name: grad},
+    grad_norm, loss). ``route``: a ``K1Route`` for the k3 convs;
+    ``native``: the plain path under native autograd (``plain_path``)."""
+    import contextlib
+    import copy
+
+    from dropclip_tpu_torch.distill.engine import (_compute_losses,
+                                                   build_topology)
+    from dropclip_tpu_torch.distill.train_state import global_norm
+
+    model = copy.deepcopy(host_model).cuda().train()
+    with (plain_path() if native else route or contextlib.nullcontext()):
+        topo = build_topology(cfg, batch.coords, batch.mask)
+        loss, _ = _compute_losses(model(topo, batch.in_feats), batch, cfg)
+        if route is not None:
+            route.phase = "backward"
+        loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    norm = global_norm([g for g in grads.values() if g is not None])
+    return grads, float(norm), float(loss.detach())
+
+
+def grad_excess(got, ref):
+    """Per tensor max|d| / (TRAIN_GRAD_RTOL * max|ref| + 1e-7): the worst
+    reading and its tensor (<= 1 is within the limit)."""
+    worst = (0.0, "")
+    for n, r in ref.items():
+        lim = TRAIN_GRAD_RTOL * float(r.abs().max()) + 1e-7
+        worst = max(worst, (float((got[n] - r).abs().max()) / lim, n))
+    return worst
+
+
+def permuted(batch):
+    """The batch with its scenes in another order: the same loss and
+    gradients, summed in another order."""
+    perm = torch.tensor([3, 1, 7, 0, 5, 2, 6, 4], device=batch.mask.device)
+    return batch._replace(**{f: getattr(batch, f)[perm]
+                             for f in batch._fields})
+
+
+def train_grads_phase(cfg, batch, host_model, report):
+    """Step 1's gradients, same weights and batch, on the card, against
+    the plain path (native autograd of the plain conv):
+
+    - K1 dgrad alone (the plain forward, K1 in the 16 dgrads): every
+      tensor within TRAIN_GRAD_RTOL * max|ref| + 1e-7; the planted fault
+      (taps not mirrored) must read past 10x that;
+    - the K1 path (K1 forward and dgrad): every parameter has a finite,
+      nonzero gradient, grad_norm within 1e-4 relative, and the worst
+      tensor within the limit or, where the plain path's own float32
+      floor is above it, within twice that floor: the plain path against
+      itself with the scenes permuted (the same math summed in another
+      order) moves the stem's and the up convs' gradients by up to 25x
+      the limit (PERF.md, Findings), and K1's forward, another
+      summation order, moves them as much. K1's forward is held to 1e-4
+      conv by conv in the K1 phase.
+
+    The plain path holds every level's unfolded float32 patches for its
+    backward; it fits the card at batch 8 with remat False (its peak is
+    read in the steps phase)."""
+    ref, n_ref, l_ref = step_grads(cfg, host_model, batch, native=True)
+    perm, _, _ = step_grads(cfg, host_model, permuted(batch), native=True)
+    noise = grad_excess(perm, ref)
+    del perm
+    dgrad, _, _ = step_grads(cfg, host_model, batch,
+                             K1Route(forward="plain"))
+    dgrad_x = grad_excess(dgrad, ref)
+    del dgrad
+    with unmirrored():
+        bad, _, _ = step_grads(cfg, host_model, batch,
+                               K1Route(forward="plain"))
+    fault = grad_excess(bad, ref)
+    del bad
+    g_k1, n_k1, l_k1 = step_grads(cfg, host_model, batch, K1Route())
+    missing = [n for n, g in g_k1.items() if g is None
+               or not torch.isfinite(g).all() or float(g.abs().max()) == 0]
+    check(not missing, f"K1 path: no (finite, nonzero) gradient for "
+          f"{missing[:5]} ({len(missing)} parameters)")
+    k1_x = grad_excess(g_k1, ref)
+    dnorm = abs(n_k1 - n_ref) / n_ref
+    del g_k1
+    torch.cuda.empty_cache()
+    print(f"train step 1: loss K1 {l_k1} plain {l_ref}; grad_norm K1 {n_k1} "
+          f"plain {n_ref} (rel {dnorm}); worst gradient, in units of the "
+          f"limit: plain vs plain with scenes permuted {noise[0]} "
+          f"({noise[1]}), K1 dgrad alone {dgrad_x[0]} ({dgrad_x[1]}), "
+          f"planted fault (dgrad taps not mirrored) {fault[0]} "
+          f"({fault[1]}), K1 path {k1_x[0]} ({k1_x[1]})", flush=True)
+    check(dgrad_x[0] <= 1.0, f"K1 dgrad gradients differ: {dgrad_x}")
+    check(fault[0] > 10, f"the planted dgrad fault reads only {fault}")
+    check(k1_x[0] <= max(1.0, 2 * noise[0]),
+          f"K1 path gradients differ: {k1_x}, plain floor {noise}")
+    check(dnorm <= 1e-4, f"grad_norm differs by {dnorm}")
+    report["train_step1"] = dict(
+        loss_k1=l_k1, loss_plain=l_ref, grad_norm_k1=n_k1,
+        grad_norm_plain=n_ref, grad_norm_rel=dnorm,
+        plain_permuted_excess=list(noise), k1_dgrad_excess=list(dgrad_x),
+        planted_fault_excess=list(fault), k1_path_excess=list(k1_x))
+    return ref
+
+
+def timed_steps(cfg, model, batch, n):
+    """``n`` optimizer steps: (losses, dropped, ms per step, synchronised
+    host clock), from the model's weights and a fresh optimizer state."""
+    from dropclip_tpu_torch.distill.engine import make_train_step
+    from dropclip_tpu_torch.distill.train_state import (create_train_state,
+                                                        make_optimizer)
+
+    state = create_train_state(model, make_optimizer(cfg, 100))
+    step = make_train_step(cfg)
+    losses, dropped, ms = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.time()
+        state, m = step(state, batch)
+        losses.append(float(m["distil_loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.time() - t) * 1e3)
+        dropped.append(int(m["dropped_voxels"]))
+    return losses, dropped, ms, state
+
+
+class StepSplit:
+    """Device time of one step's parts by CUDA events on the current
+    stream: every K1 call in the forward and in the backward (dgrad),
+    every wgrad, the whole forward (with the loss), backward and
+    optimizer."""
+
+    def __enter__(self):
+        from dropclip_tpu_torch.kernels import brick_conv3 as k1
+
+        self.k1, self.calls = k1, []
+        self.saved = (k1.brick_conv3, k1.brick_conv3_wgrad)
+        self.phase = "forward"
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = fn(*a, **kw)
+                e.record()
+                self.calls.append((name if name == "wgrad" else
+                                   f"k1_{self.phase}", s, e))
+                return out
+            return run
+
+        k1.brick_conv3 = timed("k1", self.saved[0])
+        # the wrapper counts its launches on the module's brick_conv3
+        k1.brick_conv3.launches = self.saved[0].launches
+        k1.brick_conv3_wgrad = timed("wgrad", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.saved[0].launches = self.k1.brick_conv3.launches
+        self.k1.brick_conv3, self.k1.brick_conv3_wgrad = self.saved
+
+    def sums(self):
+        torch.cuda.synchronize()
+        out = {}
+        for name, s, e in self.calls:
+            out[name] = out.get(name, 0.0) + s.elapsed_time(e)
+        return out
+
+
+def split_step(cfg, state, batch):
+    """One instrumented train step: {forward_ms, backward_ms, optimizer_ms,
+    k1_forward_ms, k1_dgrad_ms, wgrad_ms, rest_ms, wall_ms}."""
+    from dropclip_tpu_torch.distill.engine import (_compute_losses,
+                                                   build_topology)
+
+    model = state.model
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t = time.time()
+    with StepSplit() as sp:
+        ev[0].record()
+        topo = build_topology(cfg, batch.coords, batch.mask)
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = _compute_losses(model(topo, batch.in_feats), batch, cfg)
+        ev[1].record()
+        sp.phase = "dgrad"
+        loss.backward()
+        ev[2].record()
+        state.apply_gradients()
+        ev[3].record()
+        torch.cuda.synchronize()
+    wall = (time.time() - t) * 1e3
+    parts = sp.sums()
+    out = dict(forward_ms=ev[0].elapsed_time(ev[1]),
+               backward_ms=ev[1].elapsed_time(ev[2]),
+               optimizer_ms=ev[2].elapsed_time(ev[3]),
+               k1_forward_ms=parts.get("k1_forward", 0.0),
+               k1_dgrad_ms=parts.get("k1_dgrad", 0.0),
+               wgrad_ms=parts.get("wgrad", 0.0), wall_ms=wall,
+               k1_calls=sum(1 for c in sp.calls if c[0] != "wgrad"))
+    out["rest_ms"] = (ev[0].elapsed_time(ev[3]) - out["k1_forward_ms"]
+                      - out["k1_dgrad_ms"] - out["wgrad_ms"])
+    return out
+
+
+def train_steps_phase(cfg, batch, host_model, report):
+    """Five optimizer steps on both paths from the same weights: per-step
+    losses within TRAIN_LOSS_RTOL, nothing dropped; the K1 path's step
+    time, peak memory and launches (the counter set to 0 just before the
+    steps, read just after) and one step split into its parts. Returns
+    (K1 launches, trained K1-path state)."""
+    import copy
+
+    from dropclip_tpu_torch.distill.engine import make_train_step
+    from dropclip_tpu_torch.kernels.brick_conv3 import brick_conv3
+
+    torch.cuda.reset_peak_memory_stats()
+    brick_conv3.launches = 0
+    losses, dropped, ms, state = timed_steps(
+        cfg, copy.deepcopy(host_model).cuda(), batch, TRAIN_STEPS)
+    k1_n = brick_conv3.launches
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_path():
+        p_losses, p_dropped, p_ms, _ = timed_steps(
+            cfg, copy.deepcopy(host_model).cuda(), batch, TRAIN_STEPS)
+    p_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, p_losses)]
+    med, p_med = float(np.median(ms[1:])), float(np.median(p_ms[1:]))
+    print(f"train {TRAIN_STEPS} steps: losses K1 {losses} plain {p_losses} "
+          f"(max rel {max(rel)}); dropped {dropped}; K1 launches {k1_n} "
+          f"({k1_n / TRAIN_STEPS} per step); median step {med} ms (plain "
+          f"{p_med} ms; all {ms}); peak memory {peak / 2**30:.3f} GiB "
+          f"(plain {p_peak / 2**30:.3f} GiB)", flush=True)
+    check(max(rel) <= TRAIN_LOSS_RTOL, f"train losses differ by {max(rel)}")
+    check(sum(dropped) == 0 and sum(p_dropped) == 0, "voxels dropped")
+    check(k1_n == 32 * TRAIN_STEPS,
+          f"K1 ran {k1_n} times over {TRAIN_STEPS} steps (want 32 each)")
+    # the plain steps left the allocator cold: one step first
+    make_train_step(cfg)(state, batch)
+    split = split_step(cfg, state, batch)
+    check(split["k1_calls"] == 32, f"split step: {split['k1_calls']} K1 "
+          "calls")
+    print("train step split (CUDA events): " + ", ".join(
+        f"{k} {v}" for k, v in split.items()), flush=True)
+    report["train_steps"] = dict(
+        losses=losses, plain_losses=p_losses, max_rel=max(rel),
+        dropped=dropped, step_ms=ms, median_ms=med, plain_step_ms=p_ms,
+        plain_median_ms=p_med, peak_bytes=peak, plain_peak_bytes=p_peak,
+        k1_launches=k1_n,
+        k1_per_step=k1_n / TRAIN_STEPS, split=split)
+    return k1_n, state
+
+
+def train_profile_phase(cfg, state, batch, report):
+    """One K1-path step under torch.profiler: device busy and idle share,
+    K1's launches and device time, the top kernels."""
+    from dropclip_tpu_torch.distill.engine import make_train_step
+
+    step = make_train_step(cfg)
+    profile_phase((("train_step", lambda: step(state, batch)),),
+                  (("K1", "brick_conv3_mma"),), report, trace="train_step")
+    prof = report["profile"]["train_step"]
+    check(prof["K1"]["launches"] == 32,
+          f"profiled step: {prof['K1']['launches']} K1 launches")
+
+
+def bf16_worst(got, ref):
+    """The largest per-tensor max|d| / max|ref| and its tensor."""
+    worst = (0.0, "")
+    for n, r in ref.items():
+        worst = max(worst, (float((got[n] - r).abs().max())
+                            / float(r.abs().max()), n))
+    return worst
+
+
+def train_bf16_phase(cfg, batch, host_model, ref32, report):
+    """One bf16 step (bf16 activations, float32 parameters, as bench.py's
+    train mode): K1's bf16 (wgmma) instance in the forward and in dgrad.
+    Its gradients are held to the float32 plain path's (``ref32``): the
+    worst tensor within TRAIN_BF16 of max|ref| or within twice the
+    distance of the plain arithmetic in bf16 (``BrickConv3Fn`` with the
+    plain version, rounding where K1 rounds) from the same float32
+    gradients, where that is larger. In bf16 a gradient that sums many
+    cancelling terms (a batch norm's scale, the stem) is far from its
+    float32 value in either arithmetic, and one bf16 rounding that falls
+    the other way moves it; the direct K1 against plain readings, and K1's
+    dgrad alone against the plain arithmetic, are printed beside."""
+    from dropclip_tpu_torch.kernels.brick_conv3 import brick_conv3, instance
+
+    shapes = main_path_shapes(host_model)
+    kinds = {instance(torch.bfloat16, c, co) for _, c, co in shapes} | {
+        instance(torch.bfloat16, co, c) for _, c, co in shapes}
+    # both bf16 instances run wgmma (the ragged one fills shared memory
+    # element by element); MinkUNet14D's widths all take "bf16"
+    check(kinds <= {"bf16", "bf16_ragged"}, f"bf16 convs reach {kinds}")
+    bb = batch._replace(in_feats=batch.in_feats.bfloat16())
+    before = brick_conv3.launches
+    g_k1, n_k1, _ = step_grads(cfg, host_model, bb, K1Route())
+    check(brick_conv3.launches - before == 32, "bf16 step: K1 launches")
+    plain, n_pl, _ = step_grads(cfg, host_model, bb,
+                                K1Route("plain", "plain"))
+    dgrad, _, _ = step_grads(cfg, host_model, bb, K1Route(forward="plain"))
+    readings = {"k1_vs_f32": bf16_worst(g_k1, ref32),
+                "plain_vs_f32": bf16_worst(plain, ref32),
+                "k1_vs_plain": bf16_worst(g_k1, plain),
+                "k1_dgrad_vs_plain": bf16_worst(dgrad, plain)}
+    del g_k1, plain, dgrad
+    torch.cuda.empty_cache()
+    print(f"train bf16 step ({sorted(kinds)}): grad_norm K1 {n_k1}, plain "
+          f"{n_pl}; worst gradient of max|ref|: " +
+          "; ".join(f"{k} {w} ({t})" for k, (w, t) in readings.items()),
+          flush=True)
+    worst, where = readings["k1_vs_f32"]
+    lim = max(TRAIN_BF16, 2 * readings["plain_vs_f32"][0])
+    check(worst <= lim, f"bf16 gradients differ by {worst} at {where} "
+          f"(limit {lim})")
+    report["train_bf16"] = dict(grad_norm_k1=n_k1, grad_norm_plain=n_pl,
+                                instances=sorted(kinds), limit=lim,
+                                **{k: list(v) for k, v in readings.items()})
+
+
+def train_eval_phase(cfg, state, batch, report):
+    """The eval step after training, through K1, held to the plain eval
+    on the same weights within K1's float32 limit."""
+    from dropclip_tpu_torch.distill.engine import make_eval_step
+    from dropclip_tpu_torch.kernels.brick_conv3 import brick_conv3
+
+    ev = make_eval_step(cfg)
+    before = brick_conv3.launches
+    out, m = ev(state, batch)
+    check(brick_conv3.launches - before == 16, "eval step: K1 launches")
+    with plain_path():
+        ref, pm = ev(state, batch)
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    ok = torch.allclose(out, ref, rtol=1e-4, atol=1e-4 * scale)
+    print(f"eval step after training: distil loss K1 {float(m['distil_loss'])}"
+          f" plain {float(pm['distil_loss'])}; features max err {err} of "
+          f"max|ref| {scale}", flush=True)
+    check(ok and torch.isfinite(out).all() and scale > 0,
+          f"eval features differ: {err} vs {scale}")
+    report["train_eval"] = dict(max_abs_err=err, ref_max=scale,
+                                loss=float(m["distil_loss"]),
+                                plain_loss=float(pm["distil_loss"]))
+
+
+def train_cli_phase(report):
+    """``tools/train_distil`` as a module on the card: MinkUNet14D on a
+    fake .npz processed dataset under chiprun_out/, one epoch of 3 steps
+    with a checkpoint, then a second run that resumes it at epoch 1. The
+    checkpoints (0.7 GB each: weights and AMSGrad moments) go to build/
+    and are deleted afterwards."""
+    import shutil
+
+    from dropclip_tpu_torch.core.checkpoint import restore_checkpoint
+    from dropclip_tpu_torch.data.synthetic import write_fake_processed_dataset
+
+    logs = os.path.join(ROOT, "chiprun_out", "train_cli")
+    data = os.path.join(logs, "data")
+    saves = os.path.join(ROOT, "build", "train_cli")
+    shutil.rmtree(data, ignore_errors=True)
+    write_fake_processed_dataset(data, n_scenes=6, n_objects=3,
+                                 feat_dim=768, fmt="npz")
+
+    def run(tag, epochs, *extra):
+        t = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dropclip_tpu_torch.tools.train_distil",
+             "--config", os.path.join(ROOT, "configs", "DistilBlender.yaml"),
+             "--opts", "root_dir", data, "batch_size", "2",
+             "batch_size_val", "2", "workers", "2", "workers_val", "1",
+             "epochs", str(epochs), "print_freq", "1",
+             "save_path", os.path.join(saves, tag), *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        with open(os.path.join(logs, f"{tag}.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        check(proc.returncode == 0, f"train CLI {tag} failed: "
+              f"{proc.stderr[-2000:]}")
+        print(f"train CLI {tag}: {time.time() - t:.1f} s", flush=True)
+        return proc.stderr, proc.stderr.split("checkpoints in ")[-1].strip()
+
+    try:
+        log1, first = run("first", 1)
+        ck = restore_checkpoint(first)
+        check(ck is not None and ck["epoch"] == 0 and ck["step"] == 3,
+              "train CLI: no epoch-0 checkpoint of 3 steps")
+        log2, second = run("resumed", 2, "resume", first)
+        ck2 = restore_checkpoint(second)
+        check(f"resumed from {first} @ epoch 1" in log2 and "Epoch [0]"
+              not in log2 and ck2["epoch"] == 1 and ck2["step"] == 6,
+              "train CLI: the second run did not resume at epoch 1")
+    finally:
+        shutil.rmtree(saves, ignore_errors=True)
+    losses = re.findall(r"DistilLoss ([0-9.]+) ", log1 + log2)
+    print(f"train CLI: losses {losses}", flush=True)
+    report["train_cli"] = dict(losses=losses)
+
+
+def train_phase(report):
+    """The distillation trainer at full width on the card (step-1
+    gradients, five steps, bf16, eval, profile, CLI). Returns (K1
+    launches of the five steps, the K1 part of the kernels line)."""
+    cfg, batch, host_model = train_setup()
+    ref32 = train_grads_phase(cfg, batch, host_model, report)
+    k1_n, state = train_steps_phase(cfg, batch, host_model, report)
+    train_eval_phase(cfg, state, batch, report)
+    train_profile_phase(cfg, state, batch, report)
+    del state
+    torch.cuda.empty_cache()
+    train_bf16_phase(cfg, batch, host_model, ref32, report)
+    del ref32
+    train_cli_phase(report)
+    split = report["train_steps"]["split"]
+    return k1_n, dict(train_step_ms=report["train_steps"]["median_ms"],
+                      train_k1_forward_ms=split["k1_forward_ms"],
+                      train_k1_dgrad_ms=split["k1_dgrad_ms"],
+                      train_wgrad_ms=split["wgrad_ms"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script measures the "
@@ -1609,12 +2160,14 @@ def main():
     del extractor
     torch.cuda.empty_cache()
     ingest_cpu_phase(report)
+    k1_train_n, k1_train = train_phase(report)
 
     kernels = [
         dict(name="K1 brick_conv3", route="cuda",
              source="dropclip_tpu_torch/csrc/brick_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_conv.py:125",
-             launches=k1_n, **k1),
+             launches=k1_n + k1_train_n, serve_launches=k1_n,
+             train_launches=k1_train_n, **k1, **k1_train),
         dict(name="K2 pillar_conv3", route="cuda",
              source="dropclip_tpu_torch/csrc/pillar_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_pillar.py:134",

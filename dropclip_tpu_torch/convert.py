@@ -10,6 +10,9 @@ yields the same tree); nothing here imports jax.
   (K, Cin, Cout) in ``bricks._NBR_OFFSETS`` order (the pillar engine
   reshapes them to (xy-dirs, dz, Cin, Cout) at use), BN maps
   ``scale``/``bias`` (params) and ``mean``/``var`` (batch stats).
+- Optimizer state: optax's ``ScaleByAmsgradState`` (``mu``, ``nu``,
+  ``nu_max`` as param trees, ``count``) -> ``distill.train_state``'s
+  ``AmsgradChain`` state, moments keyed by the same flattened names.
 - CLIP text tower (``CLIPTextTransformer``): the ``params["text"]`` tree;
   ``nn.Dense`` kernels are (in, out) and transpose to ``Linear.weight``,
   ``block_i`` becomes ``blocks.i``, the embedding table, positional
@@ -51,6 +54,19 @@ def student_state_dict(params: Mapping[str, Any],
     sd = {k: _tensor(v) for k, v in _flatten(params).items()}
     sd.update({k: _tensor(v) for k, v in _flatten(batch_stats).items()})
     return sd
+
+
+def amsgrad_opt_state(mu: Mapping[str, Any], nu: Mapping[str, Any],
+                      nu_max: Mapping[str, Any], count: Any
+                      ) -> Dict[str, Any]:
+    """optax ``scale_by_amsgrad`` state (param trees of numpy arrays and
+    the step count) -> the state of ``AmsgradChain`` (``init``'s layout),
+    so both optimizers can start from one mid-training state."""
+    flat = [_flatten(t) for t in (mu, nu, nu_max)]
+    moments = {name: {k: _tensor(f[name]) for k, f in
+                      zip(("mu", "nu", "nu_max"), flat)}
+               for name in flat[0]}
+    return {"count": int(np.asarray(count)), "moments": moments}
 
 
 def clip_text_state_dict(text_params: Mapping[str, Any]

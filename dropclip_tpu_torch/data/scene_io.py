@@ -11,8 +11,11 @@ the reference's preprocessing output (tools/preprocess_data.py:285-297):
   pointcloud/label        (N,)    u8    instance ids (0 = table)
   pointcloud/vis_mask     (V, N)  f32   per-view point visibility
 
-``h5py`` is imported inside the functions: the card's machine has none,
-and the ingest there passes its own writer to ``process_scene``.
+A path ending in ``.npz`` holds the same schema as one numpy archive
+(``xyz``, ``rgb``, ``label``, ``vis_mask``, ``obj_feats``, ``obj_ids``
+and ``objects_info`` as its python literal): the card's machine has no
+h5py, and ``process_scene(write=...)`` writes ``.npz`` there. ``h5py`` is
+imported inside the h5 branches only.
 """
 
 from __future__ import annotations
@@ -39,11 +42,22 @@ def write_scene(path: str, xyz: np.ndarray, rgb: np.ndarray,
                 obj_feats: np.ndarray, objects_info: Dict) -> None:
     """Write atomically (a tmp name renamed into place): the ingest CLI
     resumes by skipping existing files, so a crash mid-write must not
-    leave a truncated file behind."""
-    import h5py
-
+    leave a truncated file behind. ``.npz`` paths get a numpy archive."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
+    if path.endswith(".npz"):
+        with open(tmp, "wb") as f:
+            np.savez(f, xyz=np.asarray(xyz, np.float32),
+                     rgb=np.asarray(rgb, np.float32),
+                     label=np.asarray(label).astype(np.uint8),
+                     vis_mask=np.asarray(vis_mask, np.float32),
+                     obj_feats=np.asarray(obj_feats, np.float32),
+                     obj_ids=np.arange(len(obj_feats), dtype=np.uint8),
+                     objects_info=np.array(str(objects_info)))
+        os.replace(tmp, path)
+        return
+    import h5py
+
     with h5py.File(tmp, "w") as f:
         mv = f.create_group("multiview")
         mv.create_dataset("per_obj", data=np.asarray(obj_feats, np.float32))
@@ -59,6 +73,16 @@ def write_scene(path: str, xyz: np.ndarray, rgb: np.ndarray,
 
 
 def read_scene(path: str) -> ProcessedScene:
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return ProcessedScene(
+                xyz=z["xyz"], rgb=z["rgb"],
+                label=z["label"].astype(np.int32),
+                vis_mask=z["vis_mask"].astype(np.uint8).astype(bool)
+                if "vis_mask" in z else None,
+                obj_feats=z["obj_feats"],
+                obj_ids=z["obj_ids"].astype(np.int32),
+                objects_info=literal_eval(str(z["objects_info"])))
     import h5py
 
     with h5py.File(path, "r") as f:

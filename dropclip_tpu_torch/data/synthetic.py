@@ -9,14 +9,19 @@ numbers from the same random state), numpy only:
   objects on a table, cameras on a ring, depth, instance segs and RGB
   rendered from the points, COCO-style object metadata) for ingest;
 - ``make_volumetric_coords``: voxel coordinates of bin and shelf scenes,
-  solid boxes through the z range (the pillar engine's path).
+  solid boxes through the z range (the pillar engine's path);
+- ``write_fake_processed_dataset``: a miniature processed dataset for the
+  trainer, in the h5 schema or as ``.npz`` archives of it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import numpy as np
+
+from .scene_io import write_scene
 
 CLS_NAMES = ["mug", "bowl", "bottle", "box", "can", "plate", "spoon", "fork"]
 COLORS = ["red", "green", "blue", "yellow", "white", "black"]
@@ -194,3 +199,31 @@ def make_volumetric_coords(rng: np.random.RandomState, batch: int,
         coords[b, : len(uniq)] = uniq
         mask[b, : len(uniq)] = True
     return coords, mask
+
+
+def write_fake_processed_dataset(root: str, n_scenes: int = 3,
+                                 splits: Tuple[str, ...] = ("train", "test"),
+                                 n_objects: int = 3, feat_dim: int = 16,
+                                 n_views: int = 4, seed: int = 0,
+                                 fmt: str = "h5") -> None:
+    """Write a miniature processed dataset in the reference scene schema
+    (tools/preprocess_data.py:285-297), one dir per scene: ``fmt`` "h5"
+    gives ``.h5py`` files (the JAX package's scenes, from the same seed),
+    "npz" numpy archives of the same arrays."""
+    ext = {"h5": "h5py", "npz": "npz"}[fmt]
+    rng = np.random.default_rng(seed)
+    for split in splits:
+        for s in range(n_scenes):
+            raw = make_raw_scene(rng, n_objects=n_objects, n_views=n_views)
+            n = len(raw["points"])
+            k = n_objects + 1
+            feats = rng.normal(size=(k, feat_dim)).astype(np.float32)
+            feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+            vis = rng.random((n_views, n)) > 0.3
+            vis[0] = True  # every point visible somewhere
+            scene_id = f"{split}_{s:04d}"
+            write_scene(
+                os.path.join(root, split, scene_id, f"{scene_id}.{ext}"),
+                xyz=raw["points"], rgb=raw["colors"], label=raw["labels"],
+                vis_mask=vis, obj_feats=feats,
+                objects_info=raw["objects_info"])

@@ -13,12 +13,20 @@ kernel's instance from (dtype, C, Cout); ``row_order`` is its row
 schedule (occupied rows sorted by their 27-bit tap mask, ``tap_masks``),
 torch ops on any device, which a caller may compute once per level and
 pass in.
+
+``BrickConv3Fn`` makes the conv differentiable for the trainer: the
+input gradient is itself a k3 submanifold conv on the same level (tap k
+reads weight 26-k transposed), so K1 computes it too; the weight gradient
+is a gathered product over the occupied rows (``brick_conv3_wgrad``,
+torch matmuls, as the JAX package leaves it to XLA).
 """
 
 from __future__ import annotations
 
 import ctypes
 from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -219,3 +227,106 @@ def brick_conv3(feats: torch.Tensor, nbr: torch.Tensor,
 
 
 brick_conv3.launches = 0
+
+
+def tap_sources(nbr: torch.Tensor, bshape: Tuple[int, int, int],
+                rows: torch.Tensor) -> torch.Tensor:
+    """(n, 27) int64: the flat voxel row that tap t of each voxel row in
+    ``rows`` reads (``nbr``'s brick times bx*by*bz plus the slot within
+    it), or Bm*bx*by*bz, one past the last row, where the neighbour brick
+    does not exist."""
+    bm = nbr.shape[0]
+    bv = int(np.prod(bshape))
+    source, _ = _tap_tables(tuple(bshape), nbr.device)
+    s = source[rows % bv]
+    brick = nbr.long()[(rows // bv)[:, None], s // bv]
+    hit = (brick >= 0) & (brick < bm)
+    return torch.where(hit, brick * bv + s % bv, bm * bv)
+
+
+# bytes of gathered float32 sources per wgrad product
+_WGRAD_CHUNK_BYTES = 1 << 29
+
+
+def brick_conv3_wgrad(feats: torch.Tensor, grad_out: torch.Tensor,
+                      nbr: torch.Tensor, occ: torch.Tensor,
+                      schedule: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]] = None
+                      ) -> torch.Tensor:
+    """Weight gradient of the k3 conv, float32 (27, C, Cout):
+    dW[t] = sum over occupied rows i of X[src_t(i)]^T . dY[i], where
+    ``grad_out`` is zero off ``occ``. The occupied rows are the
+    schedule's first ``n_occ`` entries, or ``occ``'s nonzeros; either
+    reads a count back to the host. The gathered sources go a few taps
+    at a time (at most ``_WGRAD_CHUNK_BYTES``), never all 27 unfolded:
+    at level 0 of the full student that would be 327,680 x 27 x 416 x 4
+    bytes = 14.7 GB."""
+    bm, bx, by, bz, c = feats.shape
+    cout = grad_out.shape[-1]
+    if schedule is not None:
+        rows = schedule[0][: int(schedule[1])].long()
+    else:
+        rows = occ.reshape(-1).nonzero()[:, 0]
+    n = rows.numel()
+    src = tap_sources(nbr, (bx, by, bz), rows)
+    x = torch.cat([feats.reshape(-1, c), feats.new_zeros((1, c))]).float()
+    g = grad_out.reshape(-1, cout)[rows].float()
+    dw = torch.empty((27, c, cout), dtype=torch.float32, device=feats.device)
+    step = max(1, min(27, _WGRAD_CHUNK_BYTES // max(n * c * 4, 1)))
+    for t0 in range(0, 27, step):
+        t1 = min(27, t0 + step)
+        xs = x[src[:, t0:t1]].reshape(n, (t1 - t0) * c)
+        dw[t0:t1] = (xs.T @ g).reshape(t1 - t0, c, cout)
+    return dw
+
+
+def mirror_taps(weights: torch.Tensor) -> torch.Tensor:
+    """(27, C, Cout) -> (27, Cout, C), tap k taking weight 26-k
+    transposed: the dgrad conv's weights."""
+    return weights.flip(0).transpose(1, 2).contiguous()
+
+
+class BrickConv3Fn(torch.autograd.Function):
+    """The k3 submanifold brick conv under autograd:
+    ``BrickConv3Fn.apply(feats, weights, nbr, occ, schedule)``.
+
+    - forward: ``brick_conv3`` (K1 on a CUDA tensor, the plain version on
+      a CPU tensor);
+    - input gradient (dgrad): ``brick_conv3`` of ``dY * occ`` with the
+      weights ``w.flip(0).transpose(1, 2)``, on the same ``nbr``, ``occ``
+      and schedule: in ``_NBR_OFFSETS``' lexicographic order offset 26-k
+      is -offset k, so dX[j] = sum_k dY[j + o_k] . W[26-k]^T. The schedule
+      stays valid because ``dY * occ`` is zero off ``occ``, as the
+      forward's input is. K1 on the card: no other kernel, no fallback;
+    - weight gradient (wgrad): ``brick_conv3_wgrad`` over the occupied
+      rows, cast to the weights' dtype.
+
+    dX is exact on occupied voxels and zero elsewhere, since K1 masks its
+    output to ``occ``; the true gradient is also nonzero at empty voxels
+    next to occupied ones. That is right for a caller whose conv input is
+    already multiplied by this level's occupancy, so that no gradient
+    reaches anything through an empty voxel: in the brick student every
+    k3 conv input is a ``MaskedBatchNorm`` output, the relu of one, or
+    the decoder's ``torch.cat`` of two, all masked to the level's
+    ``occ``.
+    """
+
+    @staticmethod
+    def forward(ctx, feats, weights, nbr, occ, schedule=None):
+        ctx.save_for_backward(feats, weights, nbr, occ)
+        ctx.schedule = schedule
+        return brick_conv3(feats, nbr, weights, occ, schedule)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        feats, weights, nbr, occ = ctx.saved_tensors
+        dy = (grad_out * occ[..., None].to(grad_out.dtype)).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = brick_conv3(dy, nbr, mirror_taps(weights), occ,
+                             ctx.schedule)
+        if ctx.needs_input_grad[1]:
+            dw = brick_conv3_wgrad(feats, dy, nbr, occ,
+                                   ctx.schedule).to(weights.dtype)
+        return dx, dw, None, None, None

@@ -34,26 +34,49 @@ class ConvKernel(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over valid voxels (``unet.py:38-78``).
+    """BatchNorm over valid voxels (``unet.py:38-78``).
 
     Parameters ``scale``/``bias`` and running buffers ``mean``/``var``
-    keep the flax names. The arithmetic keeps JAX's order: the f32 stats
-    cast to ``x.dtype`` first, then rsqrt, scale, bias and the mask —
-    ``torch.nn.BatchNorm*`` cannot stand in, it does not mask padding.
-    Training-mode statistics come with the trainer (a later slice).
+    keep the flax names. In training mode (``self.training``) the
+    statistics are float32 masked moments over every non-channel axis,
+    ``n = max(sum(mask), 1)``, and the running buffers move with
+    torch-convention momentum 0.1 toward the mean and the unbiased
+    variance ``var * n / max(n - 1, 1)`` (ME.MinkowskiBatchNorm's
+    defaults), unless ``update_stats`` is False (a rematerialised forward
+    must not move them twice). In eval mode the running buffers serve.
+    The arithmetic keeps JAX's order: the f32 stats cast to ``x.dtype``
+    first, then rsqrt, scale, bias and the mask; ``torch.nn.BatchNorm*``
+    cannot stand in, it does not mask padding.
     """
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.update_stats = True
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        y = (x - self.mean.to(x.dtype)) * torch.rsqrt(
-            self.var.to(x.dtype) + self.eps)
+        if self.training:
+            w = mask.float()[..., None]
+            n = w.sum().clamp(min=1.0)
+            xf = x.float()
+            axes = tuple(range(x.dim() - 1))
+            mean = (xf * w).sum(axes) / n
+            var = (w * (xf - mean) ** 2).sum(axes) / n
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    unbiased = var * n / (n - 1.0).clamp(min=1.0)
+                    self.mean.copy_((1 - m) * self.mean + m * mean)
+                    self.var.copy_((1 - m) * self.var + m * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + self.eps)
         y = y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
         return y * mask[..., None].to(x.dtype)
 

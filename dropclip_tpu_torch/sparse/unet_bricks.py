@@ -1,4 +1,4 @@
-"""MinkUNet on the brick-dense engine (``sparse.bricks``), eval mode.
+"""MinkUNet on the brick-dense engine (``sparse.bricks``).
 
 Port of ``dropclip_tpu/sparse/unet_bricks.py``. Module and parameter
 names follow the flax tree (``block1_0.conv1.kernel``,
@@ -6,12 +6,19 @@ names follow the flax tree (``block1_0.conv1.kernel``,
 JAX checkpoint onto ``load_state_dict`` one to one; sparse kernels stay
 (K, Cin, Cout) in lexicographic offset order.
 
-Serving is single-process, so the forward always folds the scene batch
-into one brick axis (``bricks.fold_topology``). Every k3 conv goes through
-``kernels.brick_conv3`` (K1 on CUDA tensors, its plain version on CPU);
-the k5 stem and the k2s2 down/up convs are plain torch ops, as they were
-XLA ops outside any kernel in the JAX package. Training (batch statistics,
-dropout, remat) comes with the trainer in a later slice.
+The port runs one process on one device, so the forward always folds the
+scene batch into one brick axis (``bricks.fold_topology``). Every k3 conv
+goes through ``kernels.brick_conv3.BrickConv3Fn`` (K1 on CUDA tensors for
+the forward and the input gradient, the plain version on CPU); the k5
+stem and the k2s2 down/up convs are plain torch ops under native
+autograd, as they were XLA ops outside any kernel in the JAX package.
+
+Training mode (``model.train()``) takes batch statistics in the masked
+batch norms, applies dropout after each stage (``dropout_rate``, drawn
+from the forward's ``generator``) and, with ``remat``, recomputes each
+block and each stem/down/up conv in the backward
+(``torch.utils.checkpoint``, JAX's ``nn.remat`` at
+``unet_bricks.py:202-216``) instead of holding their activations.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..kernels.brick_conv3 import brick_conv3, row_order
+from ..kernels.brick_conv3 import BrickConv3Fn, row_order
 from .bricks import (BrickLevel, BrickTopology, brick_conv, brick_down_conv,
                      brick_up_conv, fold_topology, gather_points,
                      scatter_points)
@@ -33,7 +41,7 @@ Schedule = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class BConv(ConvKernel):
-    """Stride-1 submanifold conv; ksize 3 runs K1."""
+    """Stride-1 submanifold conv; ksize 3 runs K1 (``BrickConv3Fn``)."""
 
     def __init__(self, cin: int, cout: int, ksize: int = 3):
         super().__init__(ksize ** 3, cin, cout)
@@ -43,7 +51,7 @@ class BConv(ConvKernel):
                 schedule: Optional[Schedule] = None) -> torch.Tensor:
         w = self.kernel.to(x.dtype)
         if self.ksize == 3:
-            return brick_conv3(x, level.nbr, w, level.occ, schedule)
+            return BrickConv3Fn.apply(x, w, level.nbr, level.occ, schedule)
         return brick_conv(x, level, w, ksize=self.ksize)
 
 
@@ -135,6 +143,32 @@ class BottleneckB(nn.Module):
 _BLOCKS_B = {"basic": BasicBlockB, "bottleneck": BottleneckB}
 
 
+def _set_stats_update(module: nn.Module, on: bool) -> None:
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.update_stats = on
+
+
+def rematerialized(module: nn.Module, *args: Any) -> Any:
+    """``module(*args)`` whose activations are recomputed in the backward
+    (``torch.utils.checkpoint``) instead of held. The recomputation leaves
+    the batch norms' running statistics alone: they moved once, in the
+    forward."""
+    calls = []
+
+    def run(*a):
+        if not calls:
+            calls.append(1)
+            return module(*a)
+        _set_stats_update(module, False)
+        try:
+            return module(*a)
+        finally:
+            _set_stats_update(module, True)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class MinkUNetBricks(nn.Module):
     """forward(topo: BrickTopology (batched), x (B, M, Cin)) ->
     (B, M, out_channels) per-voxel features [+ logits if use_cls_head]."""
@@ -143,12 +177,15 @@ class MinkUNetBricks(nn.Module):
                  block: str = "basic", layers: Sequence[int] = (1,) * 8,
                  planes: Sequence[int] = (32, 64, 128, 256, 384, 384, 384, 384),
                  init_dim: int = 32, use_cls_head: bool = False,
-                 n_classes: int = 0):
+                 n_classes: int = 0, dropout_rate: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         block_cls = _BLOCKS_B[block]
         exp = block_cls.expansion
         self.layers, self.planes = tuple(layers), tuple(planes)
         self.use_cls_head = use_cls_head
+        self.dropout_rate = float(dropout_rate)
+        self.remat = bool(remat)
         self.conv0p1s1 = BConv(in_channels, init_dim, ksize=5)
         self.bn0 = MaskedBatchNorm(init_dim)
         ch, enc_out = init_dim, []
@@ -175,12 +212,34 @@ class MinkUNetBricks(nn.Module):
             cin = planes * exp
         return cin
 
+    def _call(self, module: nn.Module, *args: Any) -> torch.Tensor:
+        """A block or a stem/down/up conv, rematerialised under ``remat``
+        in training (no effect on inference, as in JAX)."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            return rematerialized(module, *args)
+        return module(*args)
+
     def _stage(self, name, x, level, schedule, n_blocks):
         for i in range(n_blocks):
-            x = getattr(self, f"{name}_{i}")(x, level, schedule)
+            x = self._call(getattr(self, f"{name}_{i}"), x, level, schedule)
         return x
 
-    def forward(self, topo: BrickTopology, x: torch.Tensor):
+    def _dropout(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Dropout after a stage in training (JAX ``_dropout``, flax
+        ``nn.Dropout``: keep with probability 1 - rate, scaled by
+        1 / (1 - rate)), the mask drawn from ``generator``."""
+        rate = self.dropout_rate
+        if rate <= 0 or not self.training:
+            return x
+        if rate >= 1:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= rate
+        return torch.where(keep, x / (1.0 - rate), 0.0)
+
+    def forward(self, topo: BrickTopology, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         bsz, m = x.shape[0], x.shape[1]
         cap0 = topo.levels[0].occ.shape[1]
         bshape0 = tuple(topo.levels[0].occ.shape[2:5])
@@ -190,26 +249,29 @@ class MinkUNetBricks(nn.Module):
         dense = scatter_points(x.reshape(bsz * m, -1), topo.point_row,
                                topo.point_within, bsz * cap0, bshape0)
 
-        out = self.conv0p1s1(dense, lv[0])
+        out = self._call(self.conv0p1s1, dense, lv[0])
         out_p1 = F.relu(self.bn0(out, lv[0].occ))
         skips, out = [], out_p1
         for s in range(4):
-            out = getattr(self, f"conv{s + 1}")(out, topo.group_maps[s],
-                                                lv[s + 1])
+            out = self._call(getattr(self, f"conv{s + 1}"), out,
+                             topo.group_maps[s], lv[s + 1])
             out = F.relu(getattr(self, f"bn{s + 1}")(out, lv[s + 1].occ))
-            out = self._stage(f"block{s + 1}", out, lv[s + 1],
-                              sched[s + 1], self.layers[s])
+            out = self._dropout(self._stage(f"block{s + 1}", out, lv[s + 1],
+                                            sched[s + 1], self.layers[s]),
+                                generator)
             skips.append(out)
 
         skip_feats = [skips[2], skips[1], skips[0], out_p1]
         for d in range(4):
             lvl = 3 - d
-            out = getattr(self, f"convtr{4 + d}")(
-                out, topo.parent_maps[lvl], topo.octants[lvl], lv[lvl])
+            out = self._call(getattr(self, f"convtr{4 + d}"), out,
+                             topo.parent_maps[lvl], topo.octants[lvl],
+                             lv[lvl])
             out = F.relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].occ))
             out = torch.cat([out, skip_feats[d]], dim=-1)
-            out = self._stage(f"block{5 + d}", out, lv[lvl], sched[lvl],
-                              self.layers[4 + d])
+            out = self._dropout(self._stage(f"block{5 + d}", out, lv[lvl],
+                                            sched[lvl], self.layers[4 + d]),
+                                generator)
 
         def to_points(f):
             return gather_points(f, topo.point_row,
@@ -225,8 +287,9 @@ def build_student_bricks(cfg: Any, in_channels: Optional[int] = None,
                          generator: Optional[torch.Generator] = None
                          ) -> MinkUNetBricks:
     """Brick-backend student (same archs as the JAX factory), in eval
-    mode, weights drawn from ``generator``. ``in_channels`` defaults to
-    xyz (+rgb when ``cfg.use_color``)."""
+    mode (a trainer calls ``.train()``), weights drawn from ``generator``.
+    ``in_channels`` defaults to xyz (+rgb when ``cfg.use_color``);
+    ``remat`` defaults to True when ``cfg.remat`` is unset, as in JAX."""
     arch = cfg.arch_3d or "MinkUNet14D"
     if arch not in UNET_ARCHS:
         raise ValueError(f"architecture {arch} not supported")
@@ -242,6 +305,8 @@ def build_student_bricks(cfg: Any, in_channels: Optional[int] = None,
         block=block, layers=layers, planes=planes,
         init_dim=int(cfg.init_dim or 32),
         use_cls_head=bool(cfg.use_cls_head),
-        n_classes=int(cfg.n_classes or 0))
+        n_classes=int(cfg.n_classes or 0),
+        dropout_rate=float(cfg.dropout_rate or 0.0),
+        remat=bool(cfg.remat) if cfg.remat is not None else True)
     reset_student_parameters(model, generator)
     return model.eval()

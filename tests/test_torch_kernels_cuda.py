@@ -881,3 +881,80 @@ def test_pillar_student_keeps_the_schedule_contract(cuda, dtype,
             outs.append(model(topo, feats))
         assert pillar_conv3.launches - before == 16
     _k2_close(outs[0], outs[1], dtype)
+
+
+# ------------------------------------------------- K1 under autograd (train)
+
+def _student_level(level):
+    """A folded level of two tabletop scenes at the trainer's size (6000
+    voxels each, 8192-voxel capacity, (4, 4, 2) bricks, capacities
+    autotuned with slack 1.5)."""
+    coords, mask = make_tabletop_coords(np.random.RandomState(11), 2, 8192,
+                                        n_occ=6000, ext=40)
+    caps = bricks.autotune_brick_capacities(coords, mask, slack=1.5,
+                                            brick_shape=(4, 4, 2))
+    topo = bricks.build_brick_topology(
+        torch.as_tensor(coords, device="cuda"),
+        torch.as_tensor(mask, device="cuda"), brick_capacities=caps,
+        brick_shape=(4, 4, 2))
+    return bricks.fold_topology(topo).levels[level]
+
+
+def _fn_grads(lv, x_raw, w, dy, plain):
+    """(dX_raw, dW) of sum(conv(x_raw * occ, w) * dy): BrickConv3Fn with
+    the level's schedule, or native autograd of the plain version."""
+    from dropclip_tpu_torch.kernels.brick_conv3 import BrickConv3Fn
+
+    x_raw = x_raw.clone().requires_grad_(True)
+    w = w.clone().requires_grad_(True)
+    x = x_raw * lv.occ[..., None].to(x_raw.dtype)
+    if plain:
+        out = brick_conv3_plain(x, lv.nbr, w, lv.occ)
+    else:
+        out = BrickConv3Fn.apply(x, w, lv.nbr, lv.occ,
+                                 row_order(lv.occ, lv.nbr))
+    (out.float() * dy).sum().backward()
+    return x_raw.grad.float(), w.grad.float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("level,c,cout", [(0, 416, 384), (1, 32, 32),
+                                          (2, 448, 384), (4, 256, 256)])
+def test_k1_backward_matches_plain_autograd(cuda, dtype, level, c, cout):
+    """BrickConv3Fn on the card (K1 forward and K1 dgrad: two launches;
+    wgrad gathered products) against native autograd of the plain conv on
+    masked inputs, at MinkUNet14D's level shapes: float32 (TF32 off)
+    1e-4 of max|ref| plus rtol 1e-4, bf16 1e-2 of max|ref|; the planted
+    fault, dgrad taps transposed but not mirrored, reads past 10x the
+    float32 limit."""
+    from dropclip_tpu_torch.kernels import brick_conv3 as k1
+
+    lv = _student_level(level)
+    gen = torch.Generator(device="cuda").manual_seed(40 + level)
+    x = torch.randn(tuple(lv.occ.shape) + (c,), generator=gen,
+                    device=cuda).to(dtype)
+    w = (torch.randn((27, c, cout), generator=gen, device=cuda)
+         * (2.0 / (27 * cout)) ** 0.5).to(dtype)
+    dy = torch.randn(tuple(lv.occ.shape) + (cout,), generator=gen,
+                     device=cuda)
+    before = brick_conv3.launches
+    got = _fn_grads(lv, x, w, dy, plain=False)
+    assert brick_conv3.launches - before == 2
+    ref = _fn_grads(lv, x, w, dy, plain=True)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        scale = float(r.abs().max())
+        assert scale > 0
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * scale)
+        else:
+            assert float((g - r).abs().max()) <= 1e-2 * scale
+    if dtype == torch.float32:
+        k1_mirror = k1.mirror_taps
+        try:
+            k1.mirror_taps = lambda t: t.transpose(1, 2).contiguous()
+            bad = _fn_grads(lv, x, w, dy, plain=False)[0]
+        finally:
+            k1.mirror_taps = k1_mirror
+        assert float((bad - ref[0]).abs().max()) > 10 * 1e-4 * float(
+            ref[0].abs().max())
