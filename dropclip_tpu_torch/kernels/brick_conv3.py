@@ -8,7 +8,7 @@ first use and loaded with ``ctypes`` (``kernels/nvcc.py``).
 ``brick_conv3`` is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it takes the plain version,
 ``brick_conv3_plain`` (``sparse.bricks.brick_conv`` with ksize 3).
-``brick_conv3.launches`` counts kernel launches. ``instance`` picks the
+``counter.launches`` counts kernel launches. ``instance`` picks the
 kernel's instance from (dtype, C, Cout); ``row_order`` is its row
 schedule (occupied rows sorted by their 27-bit tap mask, ``tap_masks``),
 torch ops on any device, which a caller may compute once per level and
@@ -24,6 +24,7 @@ torch matmuls, as the JAX package leaves it to XLA).
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -36,6 +37,10 @@ from .nvcc import library
 _DTYPES = (torch.float32, torch.bfloat16)
 # instance name -> the ``kind`` argument of dropclip_brick_conv3
 KINDS = {"tf32x3": 0, "tf32x3_ragged": 1, "bf16": 2, "bf16_ragged": 3}
+# K1 launches, counted where ``brick_conv3`` launches the kernel; the count
+# lives here, not on the function, so a caller that wraps or swaps
+# ``brick_conv3`` leaves it in place
+counter = SimpleNamespace(launches=0)
 
 
 def instance(dtype: torch.dtype, c: int, cout: int,
@@ -222,11 +227,8 @@ def brick_conv3(feats: torch.Tensor, nbr: torch.Tensor,
             order.data_ptr(), n_occ.data_ptr(), masks.data_ptr(),
             out.data_ptr(), bm, bx, by, bz, c, cout, kind, stream)
     LIB.check(err, "brick_conv3")
-    brick_conv3.launches += 1
+    counter.launches += 1
     return out
-
-
-brick_conv3.launches = 0
 
 
 def tap_sources(nbr: torch.Tensor, bshape: Tuple[int, int, int],

@@ -49,11 +49,11 @@ class MaskedBatchNorm(nn.Module):
     cannot stand in, it does not mask padding.
     """
 
-    def __init__(self, channels: int, eps: float = 1e-5,
-                 momentum: float = 0.1):
+    MOMENTUM = 0.1
+
+    def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.momentum = momentum
         self.update_stats = True
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -70,7 +70,7 @@ class MaskedBatchNorm(nn.Module):
             var = (w * (xf - mean) ** 2).sum(axes) / n
             if self.update_stats:
                 with torch.no_grad():
-                    m = self.momentum
+                    m = self.MOMENTUM
                     unbiased = var * n / (n - 1.0).clamp(min=1.0)
                     self.mean.copy_((1 - m) * self.mean + m * mean)
                     self.var.copy_((1 - m) * self.var + m * unbiased)

@@ -78,15 +78,19 @@ def test_imports_without_jax_yaml_regex_triton():
 
 
 def test_no_forbidden_imports_in_sources():
-    """No module of the port nor chip_smoke.py names a forbidden package
-    in an import statement; h5py only inside a function (the scene
-    writer's, which the card's machine never calls)."""
+    """No module of the port nor a script that runs on the card
+    (chip_smoke.py and the timing and readings scripts beside it) names a
+    forbidden package in an import statement; h5py only inside a function
+    (the scene writer's, which the card's machine never calls)."""
     import re
 
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|orbax|"
                      r"dropclip_tpu\b|regex|yaml)|^(?:import|from)\s+h5py",
                      re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in (
+        "chip_smoke.py", "attention_timing.py", "brick_conv_timing.py",
+        "brick_conv_variants.py", "pillar_conv_timing.py",
+        "train_grad_readings.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "dropclip_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     for path in files:
