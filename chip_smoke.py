@@ -65,8 +65,25 @@
    eval step after training against the plain eval; one bf16 step (K1's
    wgmma instance in forward and dgrad) against the plain arithmetic; the
    trainer CLI as a module for one epoch of 3 steps on a fake .npz
-   dataset, then resumed from its checkpoint at the next epoch;
-7. prints the ``kernels`` JSON line, the card line and, last,
+   dataset with grounding eval (``clip_checkpoint random``), then resumed
+   from its checkpoint at the next epoch;
+7. eval path: ``tools.run_eval.eval_scene`` on the full-width ingest
+   scene in both fusion modes (object prior: K3 24, K7 47, K6 3 per
+   chunk; patch: K3 23, K7 45, K6 4 per image batch; K6 25 per text
+   encode) and a reduced scene on the card against the CPU (fused rows
+   at cosine >= 0.9995; planted fault: ``bicubic_sample_at`` with px and
+   py swapped); an OpenAI-layout ViT-L/14@336px checkpoint file drawn
+   from a seed, read through ``make_clip_sim`` on the card and the CPU
+   (planted fault: q and k swapped); on the train CLI's checkpoint and
+   the dataset's test split, ``tools.validate_blender`` as a module,
+   ``validate_grounding`` in process (K1 16 per student forward, K6 25
+   per text-encode miss, nothing dropped), one val batch and the upper
+   bound on the card against the CPU (sims within 0.05, masks 99%), the
+   batched scorer on a perfect student against the CPU (planted fault:
+   ground truths shifted by one query), ``validate_upper_bound`` on both,
+   ``GroundingPipeline.from_checkpoint`` against a pipeline built in
+   process (1e-6), ``tools.make_visualizations``;
+8. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero. Without a CUDA card the
@@ -620,7 +637,10 @@ def profile_phase(cases, tags, report, trace=None):
         # the port's own kernels: device time per launch, free of the
         # host's launch overhead that CUDA events around a loop include
         for tag, key in tags:
-            mine = [e for e in kernels if key in e.key]
+            # a kernel goes to the longest tag key it contains (K6's
+            # "_ln_rows" is part of K7's "_add_ln_rows")
+            mine = [e for e in kernels if key in e.key and not any(
+                key in k2 and k2 != key and k2 in e.key for _, k2 in tags)]
             n = sum(e.count for e in mine)
             dev = sum(e.self_device_time_total for e in mine) / 1e3
             report["profile"][name][tag] = dict(launches=n, device_ms=dev)
@@ -2158,9 +2178,11 @@ def train_eval_phase(cfg, state, batch, report):
 def train_cli_phase(report):
     """``tools/train_distil`` as a module on the card: MinkUNet14D on a
     fake .npz processed dataset under chiprun_out/, one epoch of 3 steps
-    with a checkpoint, then a second run that resumes it at epoch 1. The
-    checkpoints (0.7 GB each: weights and AMSGrad moments) go to build/
-    and are deleted afterwards."""
+    with grounding eval (``clip_checkpoint random``, the ViT-L text tower
+    in bf16) and a checkpoint, then a second run that resumes it at epoch
+    1. The checkpoints (0.7 GB each: weights and AMSGrad moments) go to
+    build/; the eval phase reads the first run's and deletes them. Returns
+    (dataset dir, first run's checkpoint dir, checkpoints root)."""
     import shutil
 
     from dropclip_tpu_torch.core.checkpoint import restore_checkpoint
@@ -2170,6 +2192,8 @@ def train_cli_phase(report):
     data = os.path.join(logs, "data")
     saves = os.path.join(ROOT, "build", "train_cli")
     shutil.rmtree(data, ignore_errors=True)
+    # train and test splits, 6 scenes each (the test split is the eval
+    # phase's val set)
     write_fake_processed_dataset(data, n_scenes=6, n_objects=3,
                                  feat_dim=768, fmt="npz")
 
@@ -2191,26 +2215,39 @@ def train_cli_phase(report):
         return proc.stderr, proc.stderr.split("checkpoints in ")[-1].strip()
 
     try:
-        log1, first = run("first", 1)
+        log1, first = run("first", 1, "clip_checkpoint", "random",
+                          "eval_task", "grounding")
         ck = restore_checkpoint(first)
         check(ck is not None and ck["epoch"] == 0 and ck["step"] == 3,
               "train CLI: no epoch-0 checkpoint of 3 steps")
+        evals = re.findall(r"Eval Grounding: Epoch=\[0/1\] (\{[^}]*\})",
+                           log1)
+        check(len(evals) == 1, "train CLI: no Eval Grounding line")
+        metrics = json.loads(evals[0].replace("'", '"'))
+        check(set(metrics) == {"mIoU", "Pr@25", "Pr@50", "Pr@75",
+                               "DistilLoss"}
+              and all(np.isfinite(v) for v in metrics.values()),
+              f"train CLI: grounding eval metrics {metrics}")
         log2, second = run("resumed", 2, "resume", first)
         ck2 = restore_checkpoint(second)
         check(f"resumed from {first} @ epoch 1" in log2 and "Epoch [0]"
               not in log2 and ck2["epoch"] == 1 and ck2["step"] == 6,
               "train CLI: the second run did not resume at epoch 1")
-    finally:
+    except BaseException:
         shutil.rmtree(saves, ignore_errors=True)
+        raise
     losses = re.findall(r"DistilLoss ([0-9.]+) ", log1 + log2)
-    print(f"train CLI: losses {losses}", flush=True)
-    report["train_cli"] = dict(losses=losses)
+    print(f"train CLI: losses {losses}; Eval Grounding (random ViT-L text "
+          f"tower) {metrics}", flush=True)
+    report["train_cli"] = dict(losses=losses, eval_grounding=metrics)
+    return data, first, saves
 
 
 def train_phase(report):
     """The distillation trainer at full width on the card (step-1
     gradients, five steps, bf16, eval, profile, CLI). Returns (K1
-    launches of the five steps, the K1 part of the kernels line)."""
+    launches of the five steps, the K1 part of the kernels line, what
+    ``train_cli_phase`` returns)."""
     cfg, batch, host_model = train_setup()
     ref32 = train_grads_phase(cfg, batch, host_model, report)
     k1_n, state = train_steps_phase(cfg, batch, host_model, report)
@@ -2220,12 +2257,554 @@ def train_phase(report):
     torch.cuda.empty_cache()
     train_bf16_phase(cfg, batch, host_model, ref32, report)
     del ref32
-    train_cli_phase(report)
+    cli = train_cli_phase(report)
     split = report["train_steps"]["split"]
     return k1_n, dict(train_step_ms=report["train_steps"]["median_ms"],
                       train_k1_forward_ms=split["k1_forward_ms"],
                       train_k1_dgrad_ms=split["k1_dgrad_ms"],
-                      train_wgrad_ms=split["wgrad_ms"])
+                      train_wgrad_ms=split["wgrad_ms"]), cli
+
+
+# ---- eval path: run_eval at the ingest shape; validation, serving from
+# the trainer's checkpoint, viz and a CLIP checkpoint file ----
+
+EVAL_SIMS = 0.05  # normalized sims, card vs CPU (the serve phase's limit)
+EVAL_AGREE = 0.99  # mask agreement, card vs CPU (the serve phase's limit)
+EVAL_METRICS = 1.0  # grounding metrics in points of %, card vs CPU scorer
+TEXT_COS = 0.999  # bf16 text embeddings, card vs CPU (the serve limit)
+SERVE_REL = 1e-6  # from_checkpoint vs a pipeline built in process
+CLIP_PROMPTS = ["the red mug", "a green bowl", "a blue bottle", "the box"]
+# launches per teacher chunk (96 obj-prior crops, or ``batch_size`` whole
+# images in patch mode, whose last block runs the value path only: no
+# attention, one plain LayerNorm, one fused add + LayerNorm fewer pair)
+TEACHER_LAUNCHES = {1: dict(K3=24, K7=47, K6=3), 0: dict(K3=23, K7=45, K6=4)}
+
+
+def run_eval_args(use_obj_prior, capacity):
+    """``tools/run_eval``'s defaults at the ingest phase's voxel size."""
+    return SimpleNamespace(
+        n_views=-1, max_objects=32, voxel_size=0.005, cloud_capacity=capacity,
+        kernel_queries="cls", use_visibility=0, use_similarity=1,
+        use_sim_kernel="max", use_obj_prior=use_obj_prior,
+        eval_scenario="cls", sim_negatives="generic", sim_method="paired",
+        sim_thr=0.75, cache_dir=None, viz_dir=None, _cls_list=[])
+
+
+def eval_scene_fused(extractor, raw, args, counted=None):
+    """``tools.run_eval.eval_scene``, also returning the fusion's input
+    points and result; ``counted`` (a one-item list) counts text-tower
+    runs."""
+    from dropclip_tpu_torch.tools import run_eval
+
+    name = "fuse_obj_prior" if args.use_obj_prior else "fuse_points"
+    fn, kept = getattr(run_eval, name), {}
+
+    def keep(*a, **k):
+        kept["points"], kept["fused"] = a[0], fn(*a, **k)
+        return kept["fused"]
+
+    enc = extractor.model.encode_text
+
+    def encode(tokens):
+        counted[0] += 1
+        return enc(tokens)
+
+    setattr(run_eval, name, keep)
+    if counted is not None:
+        extractor.model.encode_text = encode
+    try:
+        res = run_eval.eval_scene(raw, extractor, args)
+    finally:
+        setattr(run_eval, name, fn)
+        extractor.model.__dict__.pop("encode_text", None)
+    return res, kept["points"], kept["fused"]
+
+
+def run_eval_phase(extractor, scene, report):
+    """``tools.run_eval.eval_scene`` on the full-width ingest scene (73
+    views at 480x640, 10 objects, the ViT-L/14@336px teacher in bf16) in
+    both fusion modes, one warm call and one timed with the launch
+    counters set to 0: object-prior (class tokens of crop-mask prompts,
+    object-level fusion) and dense patches (MaskCLIP patch features,
+    point-level fusion through ``bicubic_sample_at``). Returns the timed
+    calls' launches per kernel, summed over the modes."""
+    from dropclip_tpu_torch.ops import attention as att
+    from dropclip_tpu_torch.ops.layernorm import add_layer_norm, layer_norm
+
+    counters = dict(K3=att.oneshot_attention_packed, K6=layer_norm,
+                    K7=add_layer_norm)
+    total, rows = dict(K3=0, K6=0, K7=0), {}
+    for mode, tag in ((1, "obj_prior"), (0, "patch")):
+        args = run_eval_args(mode, INGEST_CAPACITY)
+        eval_scene_fused(extractor, scene, args)
+        for c in counters.values():
+            c.launches = 0
+        chunks0, texts = extractor.chunks, [0]
+        torch.cuda.synchronize()
+        t = time.time()
+        res, points, fused = eval_scene_fused(extractor, scene, args, texts)
+        wall = time.time() - t
+        n = {k: c.launches for k, c in counters.items()}
+        chunks = (extractor.chunks - chunks0 if mode else
+                  -(-len(scene["images"]) // extractor.batch_size))
+        want = {k: v * chunks for k, v in TEACHER_LAUNCHES[mode].items()}
+        want["K6"] += 25 * texts[0]
+        rows[tag] = dict(wall_s=wall, metrics=res, chunks=chunks,
+                         text_encodes=texts[0], launches=n,
+                         visible=int(fused.visible.sum()))
+        print(f"run_eval {tag} (73 views 480x640, 10 objects, ViT-L/14@336px "
+              f"bf16): {wall:.3f} s wall; {res}; {chunks} teacher chunks, "
+              f"{texts[0]} text encodes, launches {n}; "
+              f"{rows[tag]['visible']} visible points", flush=True)
+        check(n == want, f"run_eval {tag}: launches {n}, want {want}")
+        check(texts[0] == 1 + 2 * res["n_queries"] and res["n_queries"] > 0
+              and all(np.isfinite(v) for v in res.values()),
+              f"run_eval {tag}: {res}, {texts[0]} text encodes")
+        fused_rows = (fused.obj_features[torch.isfinite(
+            fused.obj_features).all(-1)] if mode
+            else fused.features[fused.visible])
+        check(len(fused_rows) > 0 and bool(torch.isfinite(fused_rows).all()),
+              f"run_eval {tag}: no fused row, or one not finite")
+        for k in total:
+            total[k] += n[k]
+        profile_phase(((f"run_eval_{tag}", lambda: eval_scene_fused(
+            extractor, scene, args)),), (("K3", "attention_kernel"),
+                                         ("K6", "_ln_rows"),
+                                         ("K7", "_add_ln_rows")), report)
+    report["run_eval"] = rows
+    return total
+
+
+def fused_rows_cos(g, c, points, depths, poses, K, hw):
+    """Card result ``g`` against CPU result ``c`` of one fusion, rows
+    matched by index: (min cosine over the rows fused on both, away from
+    borderline projections; visibility agreement)."""
+    from dropclip_tpu_torch.fusion.core import FusionConfig, borderline_points
+
+    vis_agree = float((g.visibility.cpu() == c.visibility).float().mean())
+    if hasattr(g, "obj_features"):  # never-fused objects: NaN on both
+        fg, fc = g.obj_features.cpu(), c.obj_features
+        keep = torch.isfinite(fg).all(-1)
+        if not torch.equal(keep, torch.isfinite(fc).all(-1)):
+            return -1.0, vis_agree, 0
+    else:
+        border = borderline_points(points, depths, poses, K,
+                                   FusionConfig(image_hw=hw))
+        fg, fc = g.features.cpu(), c.features
+        keep = g.visible.cpu() & c.visible & ~border.any(0)
+    cos = torch.nn.functional.cosine_similarity(fg[keep].double(),
+                                                fc[keep].double())
+    return float(cos.min()), vis_agree, int(keep.sum())
+
+
+def run_eval_cpu_phase(report):
+    """A reduced scene (seed 3; 4 views 120x160, 3 objects; ViT-L/14@336px
+    cut to 2 vision layers at full width, one seeded weight draw) through
+    ``run_eval.eval_scene`` on the card and on the CPU in both modes:
+    fused rows at cosine >= INGEST_COS (point rows away from borderline
+    projections, which a float32 ulp decides), visibility agreeing on
+    99.9%; metrics printed. Planted fault: ``bicubic_sample_at`` with px
+    and py swapped on the card, which the cosine limit must see."""
+    from dropclip_tpu_torch.fusion import core as fusion_core
+    from dropclip_tpu_torch.teachers.clip import build_clip
+    from dropclip_tpu_torch.teachers.extractor import ClipExtractor
+
+    raw = make_ingest_scene(3, 4, (120, 160), 3, 400)
+    d = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    geo = (d(raw["depths"]), d(raw["poses"]), d(raw["K"]), (120, 160))
+    sample = fusion_core.bicubic_sample_at
+
+    def swapped(src, out_hw, px, py):
+        return sample(src, out_hw, py, px)
+
+    out, rows = {}, {}
+    for dev in ("cuda", "cpu"):
+        ex = ClipExtractor(build_clip(
+            "ViT-L/14@336px", dtype=torch.bfloat16, device=dev,
+            generator=torch.Generator().manual_seed(SEED), vision_layers=2),
+            chunk=16)
+        runs = [(1, None), (0, None)] + ([(0, "swapped")] if dev == "cuda"
+                                         else [])
+        for mode, fault in runs:
+            if fault:
+                fusion_core.bicubic_sample_at = swapped
+            try:
+                out[(dev, mode, fault)] = eval_scene_fused(
+                    ex, raw, run_eval_args(mode, 16384))
+            finally:
+                fusion_core.bicubic_sample_at = sample
+        del ex
+    for mode, tag in ((1, "obj_prior"), (0, "patch")):
+        (rg, pg, fg), (rc, pc, fc) = out[("cuda", mode, None)], \
+            out[("cpu", mode, None)]
+        check(float((pg.cpu() - pc).abs().max()) <= INGEST_XYZ,
+              f"run_eval {tag}: card and CPU clouds differ")
+        cos, agree, n = fused_rows_cos(fg, fc, pc, *geo)
+        rows[tag] = dict(min_cos=cos, vis_agreement=agree, rows=n,
+                         card=rg, cpu=rc)
+        print(f"run_eval {tag} card vs CPU (4 views 120x160, 3 objects, "
+              f"2-layer ViT-L bf16): fused rows min cosine {cos:.6f} over "
+              f"{n}, visibility agreement {agree:.5f}; metrics card {rg} "
+              f"CPU {rc}", flush=True)
+        check(cos >= INGEST_COS and agree >= 0.999 and n > 0,
+              f"run_eval {tag}: card vs CPU outside its tolerances")
+    fault_cos = fused_rows_cos(out[("cuda", 0, "swapped")][2],
+                               out[("cpu", 0, None)][2],
+                               out[("cpu", 0, None)][1], *geo)[0]
+    print(f"planted fault, bicubic_sample_at with px and py swapped: fused "
+          f"rows min cosine {fault_cos:.6f} vs the CPU", flush=True)
+    check(fault_cos < INGEST_COS, "the cosine limit does not see "
+          "bicubic_sample_at with px and py swapped")
+    report["run_eval_card_vs_cpu"] = dict(modes=rows, cos_limit=INGEST_COS,
+                                          planted_swap_cos=fault_cos)
+
+
+def clip_file_phase(cfg, report):
+    """An OpenAI-layout ViT-L/14@336px state dict drawn by numpy from
+    SEED, saved in fp16 under build/, read through ``make_clip_sim`` on
+    the card and on the CPU: 4 prompts' bf16 embeddings at cosine >=
+    TEXT_COS (25 K6 launches for the card's encode). Planted fault: the
+    card's first text block with q and k swapped. Returns the file's
+    path (the caller deletes it)."""
+    from dropclip_tpu_torch.ops.layernorm import layer_norm
+    from dropclip_tpu_torch.pipeline import make_clip_sim
+    from dropclip_tpu_torch.teachers.convert import \
+        synthetic_openai_state_dict
+
+    path = os.path.join(ROOT, "build", "clip_vitl14_336_seed0.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t = time.time()
+    torch.save(synthetic_openai_state_dict("ViT-L/14@336px", seed=SEED,
+                                           dtype=torch.float16), path)
+    made = time.time() - t
+    cfg = cfg.__class__(dict(cfg, clip_checkpoint=path))
+    t = time.time()
+    sims = {dev: make_clip_sim(cfg, dev) for dev in ("cuda", "cpu")}
+    load = time.time() - t
+    layer_norm.launches = 0
+    emb = {dev: s.encode_text(CLIP_PROMPTS).cpu() for dev, s in sims.items()}
+    k6 = layer_norm.launches
+    cos = float(torch.nn.functional.cosine_similarity(
+        emb["cuda"], emb["cpu"]).min())
+    blk = sims["cuda"].model.blocks[0].attn
+    with torch.no_grad():
+        for a in ("weight", "bias"):
+            q, k = getattr(blk.q_proj, a), getattr(blk.k_proj, a)
+            tmp = q.clone()
+            q.copy_(k)
+            k.copy_(tmp)
+    sims["cuda"]._cache.clear()
+    fault = float(torch.nn.functional.cosine_similarity(
+        sims["cuda"].encode_text(CLIP_PROMPTS).cpu(), emb["cpu"]).min())
+    print(f"CLIP checkpoint file (OpenAI layout, ViT-L/14@336px fp16, "
+          f"{os.path.getsize(path) / 2**20:.0f} MiB): made in {made:.1f} s, "
+          f"read twice in {load:.1f} s; bf16 text embeddings card vs CPU min "
+          f"cosine {cos:.6f} ({k6} K6 launches); planted fault, q and k "
+          f"swapped in the first block: {fault:.6f}", flush=True)
+    report["clip_file"] = dict(min_cos=cos, limit=TEXT_COS, k6=k6,
+                               planted_qk_swap_cos=fault)
+    check(k6 == 25, f"CLIP file: {k6} K6 launches for one encode")
+    check(cos >= TEXT_COS, f"CLIP file: card vs CPU cosine {cos}")
+    check(fault < TEXT_COS, "the cosine limit does not see q and k swapped")
+    return path
+
+
+def eval_cfg(data, clip_path, **extra):
+    """configs/DistilBlender.yaml on the fake dataset's test split."""
+    from dropclip_tpu_torch.core.config import load_cfg
+
+    cfg = load_cfg(os.path.join(ROOT, "configs", "DistilBlender.yaml"))
+    cfg.update(root_dir=data, batch_size_val=2, workers_val=1,
+               clip_checkpoint=clip_path, **extra)
+    return cfg
+
+
+def eval_model(cfg, ckpt, device):
+    """The trainer's last checkpoint as an eval state on ``device``."""
+    from dropclip_tpu_torch.core.checkpoint import load_model
+    from dropclip_tpu_torch.distill.engine import build_student_for
+    from dropclip_tpu_torch.distill.train_state import DistilTrainState
+
+    model = build_student_for(cfg).to(device)
+    load_model(model, ckpt, map_location=device)
+    return DistilTrainState(step=0, model=model, tx=None, opt_state=None)
+
+
+def grounding_sims(clip_sim, out, batch, cfg):
+    """The normalized sims and masks the scorer thresholds, every real
+    query of every scene of ``batch``, valid points only (host)."""
+    from dropclip_tpu_torch.distill import evaluate as ev
+    from dropclip_tpu_torch.similarity import predict_queries
+
+    sims, preds = [], []
+    thr = float(cfg.sim_norm_thresh)
+    for s in range(out.shape[0]):
+        plan = ev.scene_query_plan(batch["queries"][s], cfg.sim_negatives)
+        pos, negs, nmask, use_negs, _, qmask, _ = ev._pad_queries(
+            clip_sim, plan, np.asarray(batch["labels"][s]), 32, 64,
+            out.shape[-1], out.device)
+        mask = torch.as_tensor(batch["mask"][s]).to(out.device)
+        p_n, s_n = predict_queries(out[s], pos, negs, mask, cfg.sim_method,
+                                   thr, neg_mask=nmask)
+        p_0, s_0 = predict_queries(out[s], pos, None, mask, cfg.sim_method,
+                                   thr)
+        u = use_negs[:, None]
+        sims.append(torch.where(u, s_n, s_0)[qmask][:, mask].cpu())
+        preds.append(torch.where(u, p_n, p_0)[qmask][:, mask].cpu())
+    return torch.cat([x.reshape(-1) for x in sims]), \
+        torch.cat([x.reshape(-1) for x in preds])
+
+
+def sims_vs_cpu(what, g, c):
+    d = float((g[0] - c[0]).abs().max())
+    agree = float((g[1] == c[1]).float().mean())
+    print(f"{what} card vs CPU: normalized sims max |d| {d}, mask agreement "
+          f"{agree} over {len(g[0])} (query, point) pairs", flush=True)
+    check(d <= EVAL_SIMS and agree >= EVAL_AGREE,
+          f"{what}: card vs CPU sims {d}, agreement {agree}")
+    return dict(sims_max_abs=d, mask_agreement=agree)
+
+
+def validation_phase(data, ckpt, clip_path, report):
+    """Grounding validation of the trainer's checkpoint on the test split
+    (6 scenes, batches of 2): ``tools.validate_blender`` as a module on
+    the card (exit 0, its JSON line); ``validate_grounding`` in process
+    with the launch counters set to 0 (K1 16 per student forward, K6 25
+    per text-encode miss, nothing dropped); one batch of 2 scenes on the
+    card against the CPU (sims within EVAL_SIMS, masks EVAL_AGREE), the
+    scorer on a perfect student against the CPU within EVAL_METRICS with
+    a planted fault (ground truths shifted by one query), and
+    ``validate_upper_bound`` on both. Returns (K1, K6) launches."""
+    import logging
+
+    from dropclip_tpu_torch.data.dataset_blender import MVTODDataset
+    from dropclip_tpu_torch.data.loader import DataLoader
+    from dropclip_tpu_torch.distill import evaluate as ev
+    from dropclip_tpu_torch.distill.engine import make_eval_step
+    from dropclip_tpu_torch.kernels.brick_conv3 import counter as k1_count
+    from dropclip_tpu_torch.ops.layernorm import layer_norm
+    from dropclip_tpu_torch.pipeline import make_clip_sim
+    from dropclip_tpu_torch.tools import validate_upper_bound
+    from dropclip_tpu_torch.tools.train_distil import (autotune_capacities,
+                                                       to_batch)
+
+    opts = ["root_dir", data, "batch_size_val", "2", "workers_val", "1",
+            "clip_checkpoint", clip_path]
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dropclip_tpu_torch.tools.validate_blender",
+         "--config", os.path.join(ROOT, "configs", "DistilBlender.yaml"),
+         "--opts", *opts, "resume", ckpt], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    with open(os.path.join(ROOT, "chiprun_out", "validate_blender.log"),
+              "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"validate_blender failed: "
+          f"{proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"validate_blender module on the card: {time.time() - t:.1f} s; "
+          f"{line}", flush=True)
+    check(all(np.isfinite(v) for k, v in line.items() if k != "eval_cfg"),
+          f"validate_blender: {line}")
+
+    cfg = eval_cfg(data, clip_path)
+    val = MVTODDataset(cfg, "test")
+    loader = DataLoader(val, 2, MVTODDataset.collate, shuffle=False,
+                        num_workers=1)
+    autotune_capacities(cfg, val, MVTODDataset.collate,
+                        logging.getLogger("chip_smoke"))
+    step = make_eval_step(cfg)
+    state = {dev: eval_model(cfg, ckpt, dev) for dev in ("cuda", "cpu")}
+    sim = {dev: make_clip_sim(cfg, dev) for dev in ("cuda", "cpu")}
+    seen = dict(forwards=0, dropped=0)
+
+    def forward(dev):
+        def run(b):
+            out, m = step(state[dev], to_batch(b, dev))
+            seen["forwards"] += dev == "cuda"
+            seen["dropped"] += int(m["dropped_voxels"])
+            return out, m["distil_loss"]
+        return run
+
+    k1_count.launches = layer_norm.launches = 0
+    enc0 = sim["cuda"].encodes
+    torch.cuda.synchronize()
+    t = time.time()
+    res = ev.validate_grounding(loader, forward("cuda"), sim["cuda"], cfg)
+    wall = time.time() - t
+    k1, k6 = k1_count.launches, layer_norm.launches
+    misses = sim["cuda"].encodes - enc0
+    print(f"validate_grounding in process on the card: {wall:.3f} s for "
+          f"{seen['forwards']} batches of 2; {res}; K1 {k1}, K6 {k6} "
+          f"launches, {misses} text-encode misses, {seen['dropped']} "
+          f"dropped", flush=True)
+    check(k1 == 16 * seen["forwards"] and k6 == 25 * misses and misses > 0,
+          f"validate_grounding launches: K1 {k1} over {seen['forwards']} "
+          f"forwards, K6 {k6} over {misses} misses")
+    check(seen["dropped"] == 0, "validate_grounding dropped voxels")
+    check(all(np.isfinite(v) for v in res.values()), f"metrics {res}")
+    sim["cuda"]._cache.clear()  # the profiled pass encodes its texts anew
+    profile_phase((("validate_grounding", lambda: ev.validate_grounding(
+        loader, forward("cuda"), sim["cuda"], cfg)),),
+        (("K1", "brick_conv3_mma"), ("K6", "_ln_rows")), report)
+
+    batch = next(iter(loader))
+    outs = {dev: forward(dev)(batch)[0] for dev in ("cuda", "cpu")}
+    rows = dict(student=sims_vs_cpu("val batch (student)", *(
+        grounding_sims(sim[d], outs[d], batch, cfg) for d in ("cuda",
+                                                              "cpu"))))
+    metrics = {dev: ev.validate_grounding([batch], forward(dev), sim[dev],
+                                          cfg) for dev in ("cuda", "cpu")}
+    print(f"val batch metrics, card {metrics['cuda']}, CPU "
+          f"{metrics['cpu']}", flush=True)
+    targets = {d: torch.as_tensor(batch["targets"]).to(d)
+               for d in ("cuda", "cpu")}
+    rows["upper_bound"] = sims_vs_cpu("val batch (upper bound)", *(
+        grounding_sims(sim[d], targets[d], batch, cfg) for d in ("cuda",
+                                                                 "cpu")))
+    ub = {dev: validate_upper_bound.main(
+        ["--config", os.path.join(ROOT, "configs", "DistilBlender.yaml"),
+         "--device", dev, "--opts", *opts]) for dev in ("cuda", "cpu")}
+    print(f"validate_upper_bound, card {ub['cuda']}, CPU {ub['cpu']}",
+          flush=True)
+    rows["scorer"] = scorer_phase(sim, batch, cfg)
+    report["validation"] = dict(
+        validate_blender=line, in_process=res, wall_s=wall,
+        forwards=seen["forwards"], launches=dict(K1=k1, K6=k6),
+        text_misses=misses, batch_metrics=metrics, upper_bound=ub,
+        card_vs_cpu=rows, limits=dict(sims=EVAL_SIMS, agree=EVAL_AGREE,
+                                      metrics=EVAL_METRICS))
+    return k1, k6
+
+
+def scorer_phase(sim, batch, cfg):
+    """The batched scorer at full width (768-d, 8192 points, 32 queries x
+    64 negatives) on a perfect student: one query per object of the
+    batch's first scene (CLIP_PROMPTS), whose text embedding is the
+    student's feature at the object's points. Card against CPU within
+    EVAL_METRICS points of %, and the planted fault (ground truths
+    shifted by one query on the card) past it."""
+    from dropclip_tpu_torch.distill import evaluate as ev
+
+    labels = np.asarray(batch["labels"][0])
+    ids = [int(i) for i in np.unique(labels) if i > 0]
+    plan = ev.scene_query_plan({i: [CLIP_PROMPTS[n % len(CLIP_PROMPTS)]]
+                                for n, i in enumerate(ids)}, "generic")
+    c, got = batch["targets"].shape[-1], {}
+    for dev in ("cuda", "cpu"):
+        q = ev._pad_queries(sim[dev], plan, labels, 32, 64, c, dev)[:-1]
+        out = 0.01 * torch.randn((len(labels), c), generator=torch.
+                                 Generator().manual_seed(SEED)).to(dev)
+        for i, (_, gt_ids, _) in enumerate(plan):
+            sel = torch.as_tensor(np.isin(labels, gt_ids)).to(dev)
+            out[sel] += 10 * q[0][i]
+        mask = torch.as_tensor(batch["mask"][0]).to(dev)
+        score = ev.make_grounding_scorer("paired", 0.75)
+        got[dev] = torch.cat([x.reshape(-1).cpu() for x in score(
+            out, mask, *q)])
+        if dev == "cuda":
+            gts = q[4].clone()
+            gts[: len(plan)] = torch.roll(gts[: len(plan)], 1, 0)
+            fault = torch.cat([x.reshape(-1).cpu() for x in score(
+                out, mask, *q[:4], gts, q[5])])
+    d = float((got["cuda"] - got["cpu"]).abs().max())
+    dfault = float((fault - got["cpu"]).abs().max())
+    print(f"scorer on a perfect student ({len(plan)} queries): card "
+          f"{got['cuda'].tolist()} CPU {got['cpu'].tolist()}, max |d| {d}; "
+          f"planted fault, ground truths shifted by one query: "
+          f"{fault.tolist()}, |d| {dfault}", flush=True)
+    check(d <= EVAL_METRICS, f"scorer card vs CPU differs by {d}")
+    check(dfault > EVAL_METRICS, "the metrics limit does not see ground "
+          "truths shifted by one query")
+    return dict(card=got["cuda"].tolist(), cpu=got["cpu"].tolist(),
+                max_abs=d, planted_shift_abs=dfault)
+
+
+def serve_ckpt_phase(data, ckpt, clip_path, report):
+    """``GroundingPipeline.from_checkpoint`` on the trainer's checkpoint
+    (best_sim_loss_model) against a pipeline built in process from the
+    same state dict and text tower, 2 tabletop scenes on the card: sims
+    within SERVE_REL of max|ref|, masks equal."""
+    from dropclip_tpu_torch.core.checkpoint import load_model
+    from dropclip_tpu_torch.distill.engine import brick_shape_of
+    from dropclip_tpu_torch.pipeline import GroundingPipeline
+    from dropclip_tpu_torch.sparse.bricks import autotune_brick_capacities
+
+    clouds, rgbs = make_clouds(2)
+    cfg = eval_cfg(data, clip_path)
+    probe = GroundingPipeline(cfg, device="cpu")
+    vox = [probe._host_voxelize(x, r)[0] for x, r in zip(clouds, rgbs)]
+    caps = list(autotune_brick_capacities(
+        np.stack([v.coords for v in vox]), np.stack([v.mask for v in vox]),
+        brick_shape=brick_shape_of(cfg)))
+    t = time.time()
+    pipe = GroundingPipeline.from_checkpoint(
+        os.path.join(ROOT, "configs", "DistilBlender.yaml"), ckpt,
+        clip_checkpoint=clip_path,
+        overrides=["brick_capacities", str(caps)], device="cuda")
+    load = time.time() - t
+    cfg.brick_capacities = caps
+    ref = GroundingPipeline(cfg, clip_sim=pipe.clip_sim, device="cuda")
+    load_model(ref.model, ckpt, "best_sim_loss_model", map_location="cuda")
+    worst = 0.0
+    for x, r in zip(clouds, rgbs):
+        m_p, s_p = pipe.ground(x, r, QUERY_SETS[0])
+        m_r, s_r = ref.ground(x, r, QUERY_SETS[0])
+        check(np.array_equal(m_p, m_r) and pipe.last_dropped == 0,
+              "from_checkpoint: masks differ or voxels dropped")
+        worst = max(worst, float(np.abs(s_p - s_r).max()
+                                 / max(np.abs(s_r).max(), 1e-30)))
+    print(f"from_checkpoint on the card ({load:.1f} s to load): sims within "
+          f"{worst} of max|ref| of the in-process pipeline over 2 scenes, "
+          f"masks equal", flush=True)
+    check(worst <= SERVE_REL, f"from_checkpoint sims differ by {worst}")
+    report["serve_from_checkpoint"] = dict(max_rel=worst, load_s=load)
+
+
+def viz_phase(data, ckpt, report):
+    """``tools.make_visualizations`` on the trainer's checkpoint (2 val
+    scenes): its files written, one .pcd read back through load_pcd."""
+    import shutil
+
+    from dropclip_tpu_torch.tools import make_visualizations
+    from dropclip_tpu_torch.viz import load_pcd
+
+    out = os.path.join(ROOT, "chiprun_out", "viz")
+    shutil.rmtree(out, ignore_errors=True)
+    t = time.time()
+    make_visualizations.main(
+        ["--config", os.path.join(ROOT, "configs", "DistilBlender.yaml"),
+         "--opts", "root_dir", data, "resume", ckpt, "viz_dir", out,
+         "max_scenes", "2"])
+    names = sorted(os.listdir(out))
+    xyz, col = load_pcd(os.path.join(out, "test_0000_student_pca.pcd"))
+    print(f"make_visualizations: {len(names)} files in {time.time() - t:.1f}"
+          f" s; test_0000_student_pca.pcd reads back {xyz.shape[0]} points",
+          flush=True)
+    check(len(names) == 10 and xyz.shape[0] > 0 and np.isfinite(xyz).all()
+          and col is not None, f"make_visualizations wrote {names}")
+    report["viz"] = dict(files=names, points=int(xyz.shape[0]))
+
+
+def eval_phase(cfg, cli, report):
+    """The eval path on the trainer CLI's checkpoint: the CLIP checkpoint
+    file, validation, serving from the checkpoint, viz. Deletes the
+    checkpoints and the file afterwards. Returns (K1, K6) launches of the
+    in-process validation."""
+    import shutil
+
+    data, ckpt, saves = cli
+    clip_path = None
+    try:
+        clip_path = clip_file_phase(cfg, report)
+        launches = validation_phase(data, ckpt, clip_path, report)
+        serve_ckpt_phase(data, ckpt, clip_path, report)
+        viz_phase(data, ckpt, report)
+    finally:
+        shutil.rmtree(saves, ignore_errors=True)
+        if clip_path:
+            os.remove(clip_path)
+    return launches
 
 
 def main():
@@ -2310,17 +2889,21 @@ def main():
     n_ing, scene = ingest_phase(extractor, report)
     k4_n, k5_n = ingest_fallback_phase(extractor, report)
     ingest_profile_phase(extractor, scene, report)
+    n_re = run_eval_phase(extractor, scene, report)
     del extractor
     torch.cuda.empty_cache()
     ingest_cpu_phase(report)
-    k1_train_n, k1_train = train_phase(report)
+    run_eval_cpu_phase(report)
+    k1_train_n, k1_train, cli = train_phase(report)
+    k1_eval_n, k6_eval_n = eval_phase(cfg, cli, report)
 
     kernels = [
         dict(name="K1 brick_conv3", route="cuda",
              source="dropclip_tpu_torch/csrc/brick_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_conv.py:125",
-             launches=k1_n + k1_train_n, serve_launches=k1_n,
-             train_launches=k1_train_n, **k1, **k1_train),
+             launches=k1_n + k1_train_n + k1_eval_n, serve_launches=k1_n,
+             train_launches=k1_train_n, eval_launches=k1_eval_n, **k1,
+             **k1_train),
         dict(name="K2 pillar_conv3", route="cuda",
              source="dropclip_tpu_torch/csrc/pillar_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_pillar.py:134",
@@ -2328,7 +2911,8 @@ def main():
         dict(name="K3 oneshot_attention_packed", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:180",
-             launches=n_ing["K3"], **att["K3"]),
+             launches=n_ing["K3"] + n_re["K3"], ingest_launches=n_ing["K3"],
+             run_eval_launches=n_re["K3"], **att["K3"]),
         dict(name="K4 oneshot_attention", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:93",
@@ -2340,11 +2924,13 @@ def main():
         dict(name="K6 layer_norm", route="triton",
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:153",
-             launches=k6_n + k6_np + n_ing["K6"], **k6),
+             launches=k6_n + k6_np + n_ing["K6"] + n_re["K6"] + k6_eval_n,
+             run_eval_launches=n_re["K6"], eval_launches=k6_eval_n, **k6),
         dict(name="K7 add_layer_norm", route="triton",
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:125",
-             launches=n_ing["K7"], **k7),
+             launches=n_ing["K7"] + n_re["K7"], ingest_launches=n_ing["K7"],
+             run_eval_launches=n_re["K7"], **k7),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths never launched")

@@ -16,6 +16,7 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+from torch import nn
 
 LAST_NAME = "last_model"
 BEST_NAME = "best_sim_loss_model"
@@ -42,3 +43,14 @@ def restore_checkpoint(save_dir: str, name: str = LAST_NAME,
     if not os.path.isfile(path):
         return None
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def load_model(model: nn.Module, save_dir: str, name: str = LAST_NAME,
+               map_location: Any = "cpu") -> Dict:
+    """Load the student weights of ``save_dir/name.pt`` into ``model``;
+    returns the payload. Raises FileNotFoundError when there is none."""
+    restored = restore_checkpoint(save_dir, name, map_location)
+    if restored is None:
+        raise FileNotFoundError(f"no {name}.pt in {save_dir}")
+    model.load_state_dict(restored["model"])
+    return restored

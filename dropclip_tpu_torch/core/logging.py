@@ -21,12 +21,14 @@ def setup_logger(name: str = "dropclip",
                  filename: str = "train.log",
                  level: int = logging.INFO) -> logging.Logger:
     """A logger with a stderr sink and, with ``save_dir``, a file sink.
-    A logger that already has handlers is returned as it is."""
+    Each call replaces the logger's sinks, so a second run in one process
+    logs to its own directory and to the current stderr."""
     logger = logging.getLogger(name)
     logger.setLevel(level)
     logger.propagate = False
-    if logger.handlers:
-        return logger
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
     sh = logging.StreamHandler(stream=sys.stderr)
     sh.setFormatter(logging.Formatter(_FMT))
     logger.addHandler(sh)

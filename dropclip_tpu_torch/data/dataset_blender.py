@@ -15,7 +15,7 @@ quantization, eval-query construction.
 - Randomness is a per-(seed, epoch, index) ``np.random.Generator``
   (``_rng``), so samples equal the JAX dataset's draw for draw.
 - ``use_view_clip`` (per-point CLIP patch features of the sample's view)
-  raises: it needs the eval teacher path, a later slice.
+  raises: it reads the raw Blender views, whose reader is not ported.
 """
 
 from __future__ import annotations
@@ -56,8 +56,9 @@ class MVTODDataset:
         self.epoch = 0
         if cfg.use_view_clip:
             raise NotImplementedError(
-                "use_view_clip is not ported yet: it waits for the ROADMAP "
-                "queue 1 item distill/evaluate.py and the eval teacher path")
+                "use_view_clip is not ported yet: it waits for its ROADMAP "
+                "queue 1 item 6 entry, the Blender and REGRAD readers "
+                "(data/blender.py)")
 
         files = _scene_files(self.root, split)
         self.data: List[Tuple[str, int]] = []

@@ -7,8 +7,14 @@ depth test), and object-level fusion of per-view teacher features weighted
 by presence, pixel count or relative similarity to the text queries, with
 per-view min-max normalisation of the similarity matrices and NaN rows for
 objects never fused (the ingest tool replaces them with their text
-embedding). Views are one batched axis. Point-level fusion
-(``fuse_points``) waits for a later slice.
+embedding). Views are one batched axis.
+
+Point-level fusion (``fuse_points``) samples each view's teacher patch
+features at the points' pixels (``ops.resize.bicubic_sample_at``, no
+full-resolution map), weights them by visibility or by the relative
+similarity of the pixel's own object query, and accumulates one (N, C)
+float32 sum over a loop of views (the JAX ``lax.scan``); points seen in no
+view get NaN rows, as in the reference. ``fuse`` dispatches.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from ..geom.projections import project_points
 from ..geom.transforms import flip_yz, transform_pointcloud_to_camera_frame
+from ..ops.resize import bicubic_sample_at
 
 
 class FusionConfig(NamedTuple):
@@ -45,18 +52,131 @@ def relative_similarity(pos: torch.Tensor, neg: torch.Tensor, kernel: str,
     return (pos - ref).clamp_min(eps).to(torch.float32)
 
 
-def visibility_mask(points: torch.Tensor, depths: torch.Tensor,
-                    camera_poses: torch.Tensor, K: torch.Tensor,
-                    cfg: FusionConfig) -> torch.Tensor:
-    """(V, N) bool visibility of each world point in each view."""
-    h, w = cfg.image_hw
+def _project_view(points: torch.Tensor, camera_poses: torch.Tensor,
+                  K: torch.Tensor, width: int, height: int):
+    """World points -> (uv int, point depth, inside) in each view of
+    ``camera_poses`` (V, 4, 4) (the projection block of
+    feature_fusion.py:90-112)."""
     cam = flip_yz(transform_pointcloud_to_camera_frame(points, camera_poses))
-    uv, z, inside = project_points(cam, K, w, h)  # (V, N, 2), (V, N)
+    return project_points(cam, K, width, height)
+
+
+def _view_visibility(points: torch.Tensor, depths: torch.Tensor,
+                     camera_poses: torch.Tensor, K: torch.Tensor,
+                     cfg: FusionConfig):
+    """(ui, vi, visible), each (V, N): the clamped pixel of each point in
+    each view and the depth test (feature_fusion.py:81-125)."""
+    h, w = cfg.image_hw
+    uv, z, inside = _project_view(points, camera_poses, K, w, h)
     ui = uv[..., 0].clamp(0, w - 1).to(torch.int64)
     vi = uv[..., 1].clamp(0, h - 1).to(torch.int64)
     views = torch.arange(depths.shape[0], device=depths.device)[:, None]
     sensor = depths[views, vi, ui]
-    return inside & ((sensor - z).abs() <= cfg.visibility_threshold)
+    return ui, vi, inside & ((sensor - z).abs() <= cfg.visibility_threshold)
+
+
+def visibility_mask(points: torch.Tensor, depths: torch.Tensor,
+                    camera_poses: torch.Tensor, K: torch.Tensor,
+                    cfg: FusionConfig) -> torch.Tensor:
+    """(V, N) bool visibility of each world point in each view."""
+    return _view_visibility(points, depths, camera_poses, K, cfg)[2]
+
+
+def borderline_points(points: torch.Tensor, depths: torch.Tensor,
+                      camera_poses: torch.Tensor, K: torch.Tensor,
+                      cfg: FusionConfig, eps: float = 1e-4) -> torch.Tensor:
+    """(V, N) bool: the float64 projection of a point lies within ``eps``
+    of an integer pixel coordinate, or its depth test within ``eps`` of
+    the threshold. There the truncating projection and the depth test
+    turn on the last bit of a float32 product, so two correct float32
+    programs may disagree (points aggregated from a view project back
+    onto exact integer pixels of it)."""
+    h, w = cfg.image_hw
+    inv = torch.linalg.inv(camera_poses.to(torch.float64))  # (V, 4, 4)
+    cam = flip_yz((inv[:, None, :3, :3] @ points.to(torch.float64)[
+        None, :, :, None])[..., 0] + inv[:, None, :3, 3])
+    uvw = cam @ K.to(torch.float64).T
+    z = uvw[..., 2]
+    uv = uvw[..., :2] / torch.where(z == 0, 1.0, z)[..., None]
+    near_int = ((uv - uv.round()).abs() < eps).any(-1)
+    ui = uv[..., 0].trunc().clamp(0, w - 1).long()
+    vi = uv[..., 1].trunc().clamp(0, h - 1).long()
+    views = torch.arange(depths.shape[0], device=depths.device)[:, None]
+    sensor = depths.to(torch.float64)[views, vi, ui]
+    near_depth = ((sensor - z).abs() - cfg.visibility_threshold).abs() < eps
+    return near_int | near_depth
+
+
+def _point_sim_metric(feat_pts: torch.Tensor, seg_pts: torch.Tensor,
+                      query_embs: torch.Tensor, cfg: FusionConfig
+                      ) -> torch.Tensor:
+    """Per-point semantic informativeness (feature_fusion.py:176-196):
+    the relative similarity of the pixel's own object query (seg id
+    ``seg_pts``) against all other queries; 0 where the seg id is outside
+    [0, Q) (the reference never writes those)."""
+    q = query_embs.shape[0]
+    raw = feat_pts.float() @ query_embs.float().T  # (N, Q)
+    in_range = (seg_pts >= 0) & (seg_pts < q)
+    sid = seg_pts.to(torch.int64).clamp(0, q - 1)
+    pos = raw.gather(1, sid[:, None])[:, 0]
+    if cfg.sim_kernel == "max":
+        own = torch.nn.functional.one_hot(sid, q).bool()
+        ref = torch.where(own, -torch.inf, raw).amax(-1)
+    else:  # mean over the Q-1 other queries
+        ref = (raw.sum(-1) - pos) / max(q - 1, 1)
+    metric = (pos - ref).clamp_min(cfg.eps)
+    return torch.where(in_range, metric, 0.0)
+
+
+class FusedPoints(NamedTuple):
+    features: torch.Tensor    # (N, C) fused per-point features
+    visibility: torch.Tensor  # (V, N) bool
+    similarity: torch.Tensor  # (V, N) f32 per-view weights (zeros if unused)
+    visible: torch.Tensor     # (N,) bool, seen in >= 1 view
+
+
+def fuse_points(points: torch.Tensor, depths: torch.Tensor,
+                seg_masks: torch.Tensor, camera_poses: torch.Tensor,
+                patch_feats: torch.Tensor,
+                query_embs: Optional[torch.Tensor], K: torch.Tensor,
+                cfg: FusionConfig) -> FusedPoints:
+    """Point-level fusion (reference aggregate_features + fuse_points,
+    feature_fusion.py:139-270).
+
+    points (N, 3) world; depths (V, H, W); seg_masks (V, H, W) int;
+    camera_poses (V, 4, 4) cam->world; patch_feats (V, ph, pw, C) teacher
+    patch features; query_embs (Q, C) normalized text queries (required
+    with ``use_similarity``)."""
+    h, w = cfg.image_hw
+    if cfg.use_similarity and query_embs is None:
+        raise ValueError("query_embs required when use_similarity")
+    sum_feat = torch.zeros((points.shape[0], patch_feats.shape[-1]),
+                           dtype=torch.float32, device=points.device)
+    vis, wgts = [], []
+    for v in range(depths.shape[0]):
+        ui, vi, visible = (x[0] for x in _view_visibility(
+            points, depths[v:v + 1], camera_poses[v:v + 1], K, cfg))
+        feat_pts = bicubic_sample_at(patch_feats[v], (h, w), ui, vi)
+        if cfg.norm_feat:
+            feat_pts = feat_pts / torch.linalg.vector_norm(
+                feat_pts, dim=-1, keepdim=True)
+        if cfg.use_similarity:
+            metric = _point_sim_metric(feat_pts, seg_masks[v][vi, ui],
+                                       query_embs, cfg)
+            wgt = torch.where(visible, metric, 0.0)
+        else:
+            wgt = visible.float()
+        sum_feat += torch.where(visible[:, None], feat_pts * wgt[:, None],
+                                0.0)
+        vis.append(visible)
+        wgts.append(wgt)
+    vis, wgts = torch.stack(vis), torch.stack(wgts)
+    divisor = wgts.sum(0) if cfg.use_similarity else vis.float().sum(0)
+    return FusedPoints(
+        features=sum_feat / divisor[:, None],  # NaN where never visible
+        visibility=vis,
+        similarity=wgts if cfg.use_similarity else torch.zeros_like(wgts),
+        visible=vis.any(0))
 
 
 class FusedObjects(NamedTuple):
@@ -143,3 +263,17 @@ def splat_object_features(labels: torch.Tensor, obj_features: torch.Tensor
     out = obj_features[lab]
     keep = (labels > 0) & (labels < q)
     return torch.where(keep[:, None], out, torch.zeros_like(out))
+
+
+def fuse(points, depths, seg_masks, camera_poses, mv_features, query_embs,
+         K, cfg: FusionConfig, use_obj_prior: bool = True,
+         obj_present: Optional[torch.Tensor] = None):
+    """Object-level or point-level fusion (reference
+    feature_fusion.py:345-350)."""
+    if use_obj_prior:
+        if obj_present is None:
+            raise ValueError("object-level fusion needs obj_present")
+        return fuse_obj_prior(points, depths, seg_masks, camera_poses,
+                              mv_features, obj_present, query_embs, K, cfg)
+    return fuse_points(points, depths, seg_masks, camera_poses, mv_features,
+                       query_embs, K, cfg)

@@ -105,3 +105,34 @@ def resize_image(image: torch.Tensor, out_hw: Tuple[int, int]
     preprocessing of the teacher; ``teachers/prompting.py`` in the JAX
     package)."""
     return bicubic_resize(image.to(torch.float32), out_hw)
+
+
+def bicubic_sample_at(src: torch.Tensor, out_hw: Sequence[int],
+                      px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """``bicubic_resize(src, out_hw)[py, px]`` without materialising the
+    resized map: per point, the 4x4 source taps with torch's cubic
+    weights, accumulated one tap at a time (an (N, C) working set, where
+    the reference upsamples each (ph, pw, C) teacher map to the full
+    image, utils/feature_fusion.py:167-172).
+
+    src (ph, pw, C); px, py (N,) integer output pixels in [0, W) x
+    [0, H). Returns (N, C) float32."""
+    ph, pw = src.shape[0], src.shape[1]
+    flat = src.reshape(ph * pw, -1).to(torch.float32)
+
+    def taps(coord, out_size, in_size):
+        s = (coord.to(torch.float32) + 0.5) * (in_size / out_size) - 0.5
+        i0 = torch.floor(s)
+        offs = torch.arange(-1, 3, device=coord.device)
+        idx = (i0.to(torch.int64)[:, None] + offs).clamp(0, in_size - 1)
+        return idx, _cubic_weights(s - i0)  # (N, 4), (N, 4)
+
+    iy, wy = taps(py, int(out_hw[0]), ph)
+    ix, wx = taps(px, int(out_hw[1]), pw)
+    out = torch.zeros((px.shape[0], flat.shape[1]), dtype=torch.float32,
+                      device=src.device)
+    for a in range(4):
+        for b in range(4):
+            w = (wy[:, a] * wx[:, b])[:, None]
+            out += flat[iy[:, a] * pw + ix[:, b]] * w
+    return out

@@ -11,6 +11,7 @@ engines run the student: "bricks" (the default; brick topology built by
 torch ops on the card, every k3 conv through K1) and "pillars" (the
 volumetric engine for bin and shelf scenes; host-built pillar topology at
 frozen static shapes, every k3 conv through K2, one scene per call).
+``GroundingPipeline.from_checkpoint`` loads the port trainer's checkpoint.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 which runs the plain versions of the kernels; without a card and without
 ``device``, construction raises instead of falling back.
@@ -49,25 +50,22 @@ def fit_pillar_shapes(probes) -> Tuple[int, List[int]]:
 def make_clip_sim(cfg, device=None, seed: int = 0
                   ) -> Optional[ClipSimilarity]:
     """Text encoder for grounding (``tools/train_distil.py::make_clip_sim``
-    in the JAX package): the ``cfg.clip_model`` text tower in bf16.
-    ``clip_checkpoint: random`` draws its weights from ``seed``; real
-    checkpoints load through ``convert.clip_text_state_dict``. None when
-    no checkpoint is configured."""
+    in the JAX package): the ``cfg.clip_model`` text tower in bf16 with
+    ``cfg.sim_method`` and ``cfg.sim_norm_thresh`` as its defaults.
+    ``clip_checkpoint`` is a CLIP checkpoint file in either public layout
+    (``teachers/convert.load_params``), or "random" to draw the weights
+    from ``seed``. None when no checkpoint is configured."""
     if not cfg.clip_checkpoint:
         return None
-    from .teachers.clip import build_clip_text
+    from .teachers.convert import build_clip_text_from
 
-    if cfg.clip_checkpoint != "random":
-        raise NotImplementedError(
-            "CLIP checkpoint files are not read yet: reading them comes "
-            "with the port of teachers/convert.py (ROADMAP queue 1 item "
-            "6); load a state dict from convert.clip_text_state_dict "
-            "instead")
     device = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    model = build_clip_text(cfg.clip_model or "ViT-L/14@336px",
-                            dtype=torch.bfloat16, generator=gen).to(device)
-    return ClipSimilarity(model, device)
+    model = build_clip_text_from(cfg.clip_model or "ViT-L/14@336px",
+                                 cfg.clip_checkpoint, dtype=torch.bfloat16,
+                                 seed=seed)
+    return ClipSimilarity(model.to(device), device,
+                          method=cfg.sim_method or "paired",
+                          threshold=float(cfg.sim_norm_thresh or 0.7))
 
 
 class GroundingPipeline:
@@ -118,6 +116,33 @@ class GroundingPipeline:
                 student_state_dict(params, batch_stats or {}))
         self.model.to(self.device)
         self.clip_sim = clip_sim
+
+    @classmethod
+    def from_checkpoint(cls, config_path: str, ckpt_dir: str,
+                        clip_checkpoint: Optional[str] = None,
+                        ckpt_name: str = "best_sim_loss_model",
+                        overrides: Optional[Sequence[str]] = None,
+                        device=None) -> "GroundingPipeline":
+        """Build from a training config and a checkpoint directory of the
+        port's trainer (``<ckpt_dir>/<ckpt_name>.pt``). ``overrides``: the
+        "key value ..." list of the CLIs' ``--opts``; it must repeat the
+        shape options the training run used (feat_dim, voxel_capacity,
+        arch_3d, ...). The JAX trainer's orbax directories are not read."""
+        from .core.checkpoint import load_model
+        from .core.config import load_cfg, merge_cfg_from_list
+
+        cfg = load_cfg(config_path)
+        if overrides:
+            cfg = merge_cfg_from_list(cfg, list(overrides))
+        if clip_checkpoint:
+            cfg.clip_checkpoint = clip_checkpoint
+        device = resolve_device(device)
+        clip_sim = make_clip_sim(cfg, device)
+        if clip_sim is None:
+            raise ValueError("grounding needs a clip_checkpoint")
+        pipe = cls(cfg, clip_sim=clip_sim, device=device)
+        load_model(pipe.model, ckpt_dir, ckpt_name, map_location=device)
+        return pipe
 
     @torch.no_grad()
     def _forward(self, coords: np.ndarray, mask: np.ndarray,

@@ -9,11 +9,12 @@ their text embedding, and write the processed scene. Every stage runs on
 the card (the ViT-L teacher through K3, K6 and K7) unless the caller
 passes ``device="cpu"``.
 
-Usage (random teacher weights drawn from a seed: reading CLIP checkpoint
-files is not ported yet):
+Usage (``--clip-checkpoint`` a CLIP checkpoint file, OpenAI or
+HuggingFace layout; without it the teacher's weights are drawn from a
+seed):
 
   python -m dropclip_tpu_torch.tools.preprocess_data -ds Synthetic \\
-      -c OUT_DIR --n-scenes 4 [--device cpu]
+      -c OUT_DIR --n-scenes 4 [--clip-checkpoint CLIP.pt] [--device cpu]
 
 Waiting for a later slice: ``-ds Blender`` and ``-ds REGRAD`` (their raw
 readers) and ``--n-devices`` (one scene per card).
@@ -239,19 +240,14 @@ def process_scene(images: np.ndarray, depths: np.ndarray, segs: np.ndarray,
 
 def build_extractor(args, device=None, seed: int = 0) -> ClipExtractor:
     """The ingest teacher: ``args.clip_model`` in bf16 with the obj-prior
-    prompt settings of ``args``. ``clip_checkpoint`` None or "random"
-    draws the weights from ``seed``."""
-    from ..teachers.clip import build_clip
+    prompt settings of ``args``; weights from ``args.clip_checkpoint`` (a
+    CLIP checkpoint file in either public layout), or drawn from ``seed``
+    when it is None or "random"."""
+    from ..teachers.convert import build_clip_from
 
-    if args.clip_checkpoint and args.clip_checkpoint != "random":
-        raise NotImplementedError(
-            "reading CLIP checkpoint files is not ported yet; load a state "
-            "dict from convert.clip_state_dict instead")
-    print("WARNING: no CLIP checkpoint for --clip-checkpoint; using RANDOM "
-          f"teacher weights from seed {seed} (smoke mode)")
-    model = build_clip(args.clip_model, dtype=torch.bfloat16,
-                       generator=torch.Generator().manual_seed(seed),
-                       device=device)
+    model = build_clip_from(args.clip_model, args.clip_checkpoint,
+                            dtype=torch.bfloat16, device=device, seed=seed,
+                            context="--clip-checkpoint")
     return ClipExtractor(model, mode="cls",
                          visual_prompt=args.visual_prompt.split(","),
                          crop_num_levels=args.crop_num_levels,

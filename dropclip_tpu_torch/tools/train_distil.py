@@ -12,8 +12,13 @@ Usage:
   python -m dropclip_tpu_torch.tools.train_distil \\
       --config configs/DistilBlender.yaml [--device cpu] [--opts key value ...]
 
+Validation each ``eval_freq`` epochs: with a ``clip_checkpoint`` (a CLIP
+checkpoint file, or "random"), segmentation eval (``eval_task`` all or
+segmentation, with ``cls_list_path``) and grounding eval (``eval_task``
+all or grounding, whose DistilLoss picks the best checkpoint); otherwise
+the distil loss alone. ``visualize`` dumps one val scene per eval epoch.
+
 Not ported yet, each raising with its ROADMAP item: ``scan_epochs > 0``,
-``clip_checkpoint`` (grounding and segmentation eval), ``visualize``,
 ``profile_dir`` and several processes.
 """
 
@@ -38,6 +43,7 @@ from ..data.loader import DataLoader
 from ..distill.engine import (DistilBatch, brick_shape_of, build_student_for,
                               make_eval_step, make_train_step)
 from ..distill.train_state import create_train_state, make_optimizer
+from ..pipeline import make_clip_sim
 from ..sparse.bricks import autotune_brick_capacities
 
 
@@ -59,15 +65,11 @@ def _refuse_unported(cfg) -> None:
     todo = [
         (int(cfg.scan_epochs or 0) > 0, "scan_epochs",
          "make_scanned_train as a CUDA graph"),
-        (bool(cfg.clip_checkpoint), "clip_checkpoint (grounding and "
-         "segmentation eval)", "distill/evaluate.py with make_clip_sim on "
-         "a checkpoint"),
-        (bool(cfg.visualize), "visualize", "the eval and viz CLIs"),
         (bool(cfg.profile_dir), "profile_dir", "profile_dir on "
          "torch.profiler"),
         (int(os.environ.get("WORLD_SIZE", "1")) > 1 or bool(
-            cfg.dist_coordinator), "several processes",
-         "DDP with all-reduced BN stats"),
+            cfg.dist_coordinator), "several processes (training and "
+         "eval)", "DDP with all-reduced BN stats"),
     ]
     for on, what, item in todo:
         if on:
@@ -87,6 +89,102 @@ def to_batch(b: Dict, device: torch.device) -> DistilBatch:
                               np.int32))
     return DistilBatch(**{k: torch.as_tensor(v).to(device, non_blocking=True)
                           for k, v in arrays.items()})
+
+
+def autotune_capacities(cfg, ds, collate, logger) -> None:
+    """Static brick capacities from 16 samples of ``ds`` unless set or
+    ``autotune_capacities`` is False: every brick conv scales with
+    capacity and the M//8 rule over-allocates; slack 1.5 absorbs
+    augmentation variance, and a scene past capacity only drops its
+    overflow bricks (counted by the steps)."""
+    autotune = (cfg.autotune_capacities
+                if cfg.autotune_capacities is not None else True)
+    if cfg.brick_capacities or not autotune:
+        return
+    sample = collate([ds[i % len(ds)] for i in range(16)])
+    cfg.brick_capacities = list(autotune_brick_capacities(
+        np.asarray(sample["coords"]), np.asarray(sample["mask"]),
+        num_levels=int(cfg.num_levels or 5), slack=1.5,
+        brick_shape=brick_shape_of(cfg)))
+    logger.info("autotuned brick capacities: %s (brick shape %s)",
+                cfg.brick_capacities, brick_shape_of(cfg))
+
+
+def dump_visualization(val_ds, collate, eval_forward, epoch: int,
+                       save_dir: str, cfg, batch_size: int) -> str:
+    """One random val scene per eval epoch (reference engine/distil.py:
+    551-648) to ``<save_dir>/vis/epoch-{E}/rank-0/``: ``outputs.npz``
+    (raw_pc, raw_rgb, outputs, targets; the JAX package writes the same
+    arrays as h5, which the card's machine cannot) and ``outputs.pcd``,
+    the 4-panel cloud rgb | label colors | PCA(targets) | PCA(outputs)
+    offset along x (:597-604)."""
+    from ..viz import apply_pca, label_colors, save_pcd
+
+    rng = np.random.default_rng(int(cfg.manual_seed or 42) + epoch)
+    idx = int(rng.integers(len(val_ds)))
+    b = collate([val_ds[idx]] * batch_size)  # the loader's batch shape
+    out, _ = eval_forward(b)
+    mask = np.asarray(b["mask"])[0].astype(bool)
+    feats = np.asarray(b["in_feats"])[0][mask]
+    xyz = feats[:, :3]
+    rgb = (np.clip(feats[:, 3:6], 0, 1) if feats.shape[1] >= 6
+           else np.full_like(xyz, 0.5))
+    targets = np.asarray(b["targets"])[0][mask]
+    labels = np.asarray(b["labels"])[0][mask].astype(int)
+    preds = out[0].float().cpu().numpy()[mask]
+
+    tgt_dir = os.path.join(save_dir, "vis", f"epoch-{epoch}", "rank-0")
+    os.makedirs(tgt_dir, exist_ok=True)
+    np.savez(os.path.join(tgt_dir, "outputs.npz"),
+             raw_pc=xyz.astype(np.float32), raw_rgb=rgb.astype(np.float32),
+             outputs=preds.astype(np.float32),
+             targets=targets.astype(np.float32))
+    # the panel offset scales with the scene (the reference's fixed 0.5
+    # assumes tabletop extents)
+    off = float(np.ptp(xyz[:, 0])) * 1.1 + 1e-3
+    panels = [rgb, label_colors(labels), apply_pca(targets),
+              apply_pca(preds)]
+    pts = np.concatenate([xyz + np.array([off * i, 0.0, 0.0])
+                          for i in range(len(panels))])
+    save_pcd(os.path.join(tgt_dir, "outputs.pcd"), pts,
+             np.concatenate(panels))
+    return tgt_dir
+
+
+def validate(cfg, val_loader, eval_forward, clip_sim, epoch: int, logger,
+             fallback: float, wandb_run=None) -> float:
+    """One validation pass (reference engine/distil.py:235-532):
+    segmentation and grounding eval where ``clip_sim`` and ``eval_task``
+    ask for them, else the distil loss; logs the metrics and returns the
+    loss that picks the best checkpoint."""
+    task = cfg.eval_task
+    if clip_sim is not None and task in ("all", "segmentation") \
+            and cfg.cls_list_path:
+        import json
+
+        from ..distill.evaluate import validate_segmentation
+
+        with open(cfg.cls_list_path) as f:
+            cls_names = list(json.load(f).values())
+        res = validate_segmentation(val_loader, eval_forward,
+                                    clip_sim.encode_text(cls_names), cfg)
+        logger.info("Eval Segmentation: Epoch=[%d/%s] %s", epoch,
+                    cfg.epochs, res)
+    if clip_sim is not None and task in ("all", "grounding"):
+        from ..distill.evaluate import validate_grounding
+
+        res = validate_grounding(val_loader, eval_forward, clip_sim, cfg)
+        logger.info("Eval Grounding: Epoch=[%d/%s] %s", epoch, cfg.epochs,
+                    res)
+        if wandb_run is not None:
+            wandb_run.log({"val_steps": epoch,
+                           **{f"validation/{k}": v for k, v in res.items()}})
+        return res["DistilLoss"]
+    losses = [float(eval_forward(b)[1]) for b in val_loader]
+    val_loss = float(np.mean(losses)) if losses else fallback
+    logger.info("Eval: Epoch=[%d/%s] DistilLoss=%.4f", epoch, cfg.epochs,
+                val_loss)
+    return val_loss
 
 
 def _wandb(cfg, stamp, logger):
@@ -133,20 +231,7 @@ def main(argv=None) -> Optional[str]:
                                 num_workers=int(cfg.workers_val or 2))
     iters_per_epoch = max(len(train_loader), 1)
 
-    # static brick capacities from a data sample: every brick conv scales
-    # with capacity and the M//8 rule over-allocates; slack 1.5 absorbs
-    # augmentation variance, and a scene past capacity only drops its
-    # overflow bricks (counted, and warned about below)
-    autotune = (cfg.autotune_capacities
-                if cfg.autotune_capacities is not None else True)
-    if not cfg.brick_capacities and autotune:
-        sample = collate([train_ds[i % len(train_ds)] for i in range(16)])
-        cfg.brick_capacities = list(autotune_brick_capacities(
-            np.asarray(sample["coords"]), np.asarray(sample["mask"]),
-            num_levels=int(cfg.num_levels or 5), slack=1.5,
-            brick_shape=brick_shape_of(cfg)))
-        logger.info("autotuned brick capacities: %s (brick shape %s)",
-                    cfg.brick_capacities, brick_shape_of(cfg))
+    autotune_capacities(cfg, train_ds, collate, logger)
 
     model = build_student_for(
         cfg, generator=torch.Generator().manual_seed(seed)).to(device)
@@ -169,6 +254,12 @@ def main(argv=None) -> Optional[str]:
 
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg)
+    clip_sim = make_clip_sim(cfg, device)
+
+    def eval_forward(b):
+        out, m = eval_step(state, to_batch(b, device))
+        return out, m["distil_loss"]
+
     dropout_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     for epoch in range(start_epoch, int(cfg.epochs or 200)):
@@ -208,11 +299,13 @@ def main(argv=None) -> Optional[str]:
 
         val_loss = lm.avg
         if val_loader is not None and epoch % int(cfg.eval_freq or 1) == 0:
-            losses = [float(eval_step(state, to_batch(b, device))[1][
-                "distil_loss"]) for b in val_loader]
-            val_loss = float(np.mean(losses)) if losses else lm.avg
-            logger.info("Eval: Epoch=[%d/%s] DistilLoss=%.4f", epoch,
-                        cfg.epochs, val_loss)
+            val_loss = validate(cfg, val_loader, eval_forward, clip_sim,
+                                epoch, logger, lm.avg, wandb_run)
+            if cfg.visualize:
+                vdir = dump_visualization(
+                    val_ds, collate, eval_forward, epoch, save_dir, cfg,
+                    int(cfg.batch_size_val or 8))
+                logger.info("visualization -> %s", vdir)
 
         if epoch % int(cfg.save_freq or 1) == 0:
             is_best = val_loss < best_val

@@ -1,9 +1,12 @@
 """dropclip_tpu_torch imports with none of jax, flax, the JAX package,
-regex, yaml, h5py or triton available (the card's machine has only torch,
-triton, numpy, scipy, einops, pytest and hypothesis), and its entry points
-(serve pipeline on either engine, pillar topology, text encoder, CLIP,
-ingest staging, the trainer) refuse to run without a card unless asked
-for the CPU; the trainer's data path reads .npz scenes with no h5py."""
+regex, yaml, h5py, triton, matplotlib or PIL available (the card's
+machine has only torch, triton, numpy, scipy, einops, pytest and
+hypothesis; matplotlib and PIL are imported only inside the viz functions
+that draw), and its entry points (serve pipeline on either engine and
+from a checkpoint, pillar topology, text encoder, CLIP, ingest staging,
+the trainer, the eval and viz CLIs) refuse to run without a card unless
+asked for the CPU; the trainer's data path reads .npz scenes with no
+h5py."""
 
 import os
 import subprocess
@@ -14,7 +17,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "dropclip_tpu",
-             "regex", "yaml", "h5py", "triton"):
+             "regex", "yaml", "h5py", "triton", "matplotlib", "PIL"):
     sys.modules[name] = None  # any import of these raises ImportError
 import importlib, pkgutil
 import dropclip_tpu_torch as pkg
@@ -22,8 +25,13 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 leaked = sorted(n for n in ("jax", "flax", "dropclip_tpu", "regex", "yaml",
-                            "h5py", "triton") if sys.modules.get(n) is not None)
+                            "h5py", "triton", "matplotlib", "PIL")
+                if sys.modules.get(n) is not None)
 assert not leaked, leaked
+for m in ("teachers.convert", "distill.evaluate", "viz",
+          "tools.validate_blender", "tools.validate_upper_bound",
+          "tools.run_eval", "tools.make_visualizations"):
+    assert "dropclip_tpu_torch." + m in mods, m
 import torch
 torch.cuda.is_available = lambda: False
 from dropclip_tpu_torch.core.config import CfgNode
@@ -36,9 +44,19 @@ from dropclip_tpu_torch.sparse.pillar_topology import build_pillar_topology
 from dropclip_tpu_torch.teachers.clip import build_clip
 from dropclip_tpu_torch.tools.preprocess_data import stage_scene
 from dropclip_tpu_torch.tools.train_distil import main as train_main
+from dropclip_tpu_torch.tools import (make_visualizations, run_eval,
+                                      validate_blender, validate_upper_bound)
+from dropclip_tpu_torch.teachers.convert import build_clip_from
 import numpy as np
 z = np.zeros((1, 4, 4), np.float32)
+y = "configs/DistilBlender.yaml"
 for make in (lambda: GroundingPipeline(cfg), lambda: GroundingPipeline(pcfg),
+             lambda: GroundingPipeline.from_checkpoint(y, "nowhere"),
+             lambda: validate_blender.main(["--config", y]),
+             lambda: validate_upper_bound.main(["--config", y]),
+             lambda: run_eval.main(["--clip-model", "tiny-test"]),
+             lambda: make_visualizations.main(["--config", y]),
+             lambda: build_clip_from("tiny-test", "random"),
              lambda: build_pillar_topology(np.zeros((4, 3)), np.ones(4)),
              lambda: make_clip_sim(cfg),
              lambda: build_clip("tiny-test"),
@@ -74,7 +92,7 @@ def test_imports_without_jax_yaml_regex_triton():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 54  # every module of the package was imported
+    assert n >= 61  # every module of the package was imported
 
 
 def test_no_forbidden_imports_in_sources():

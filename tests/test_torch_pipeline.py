@@ -210,3 +210,61 @@ def test_pillar_engine_refusals_and_empty_cloud(pillar_pipes):
                                                    np.float32)])
     with pytest.raises(ValueError, match="pillar_z0"):
         tp.ground(tall, None, QUERIES)
+
+
+def test_from_checkpoint_round_trips_the_trainers_checkpoint(tmp_path, rng):
+    """A checkpoint of the port's trainer (one epoch of the tiny student,
+    best_sim_loss_model by default) and a CLIP checkpoint file through
+    GroundingPipeline.from_checkpoint: the student's state dict as saved,
+    and ground() within 1e-6 relative of a pipeline built in process from
+    the same state dict and text tower."""
+    import os
+
+    from dropclip_tpu_torch.core.checkpoint import restore_checkpoint
+    from dropclip_tpu_torch.core.config import load_cfg, merge_cfg_from_list
+    from dropclip_tpu_torch.data.synthetic import \
+        write_fake_processed_dataset
+    from dropclip_tpu_torch.pipeline import make_clip_sim
+    from dropclip_tpu_torch.teachers.convert import \
+        synthetic_openai_state_dict
+    from dropclip_tpu_torch.tools import train_distil
+
+    yaml = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "DistilBlender.yaml")
+    data, clip = str(tmp_path / "data"), str(tmp_path / "clip.pt")
+    write_fake_processed_dataset(data, n_scenes=2, n_objects=2, feat_dim=16,
+                                 fmt="npz")
+    torch.save(synthetic_openai_state_dict("tiny-test", seed=6), clip)
+    shape = ["arch_3d", "tiny", "feat_dim", "16", "voxel_capacity", "256",
+             "voxel_size", "0.02", "clip_model", "tiny-test",
+             "sim_norm_thresh", "0.6"]
+    save = train_distil.main(
+        ["--config", yaml, "--device", "cpu", "--opts", "root_dir", data,
+         *shape, "batch_size", "2", "batch_size_val", "2", "workers", "1",
+         "workers_val", "1", "epochs", "1", "save_path",
+         str(tmp_path / "exp")])
+    pipe = GroundingPipeline.from_checkpoint(
+        yaml, save, clip_checkpoint=clip, overrides=shape, device="cpu")
+    saved = restore_checkpoint(save, name="best_sim_loss_model")["model"]
+    got_sd = pipe.model.state_dict()
+    assert set(got_sd) == set(saved)
+    assert all(torch.equal(got_sd[k], saved[k]) for k in saved)
+
+    cfg = merge_cfg_from_list(load_cfg(yaml), shape)
+    cfg.clip_checkpoint = clip
+    ref = GroundingPipeline(cfg, clip_sim=make_clip_sim(cfg, "cpu"),
+                            device="cpu")
+    ref.model.load_state_dict(saved)
+    for _ in range(2):
+        xyz = rng.randn(300, 3).astype(np.float32) * 0.3
+        rgb = rng.rand(300, 3)
+        m_g, s_g = pipe.ground(xyz, rgb, QUERIES)
+        m_r, s_r = ref.ground(xyz, rgb, QUERIES)
+        assert np.abs(s_g - s_r).max() <= 1e-6 * max(np.abs(s_r).max(), 1e-6)
+        np.testing.assert_array_equal(m_g, m_r)
+    with pytest.raises(FileNotFoundError):
+        GroundingPipeline.from_checkpoint(yaml, str(tmp_path), clip,
+                                          overrides=shape, device="cpu")
+    with pytest.raises(ValueError, match="clip_checkpoint"):
+        GroundingPipeline.from_checkpoint(yaml, save, overrides=shape,
+                                          device="cpu")

@@ -1,12 +1,14 @@
 """The port's trainer CLI (``python -m dropclip_tpu_torch.tools.
 train_distil``) on the CPU: the canonical config with the tiny arch on a
 fake .npz dataset, one epoch with a checkpoint, then a resumed run at the
-next epoch; options that wait for later slices raise."""
+next epoch; grounding eval and the visualization dump with a CLIP
+checkpoint file; options that wait for later slices raise."""
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,9 +58,48 @@ def test_train_cli_one_epoch_then_resume(tmp_path):
 @pytest.mark.parametrize("key,value", [
     ("scan_epochs", "2"), ("clip_checkpoint", "random"),
     ("profile_dir", "/nonexistent"), ("visualize", "True")])
-def test_train_cli_refuses_unported_options(tmp_path, key, value):
+def test_train_cli_refuses_unported_options(tmp_path, monkeypatch, key,
+                                            value):
     """Each raises NotImplementedError naming its ROADMAP item, before
-    any data is read."""
+    any data is read: scan_epochs and profile_dir on their own; grounding
+    eval (clip_checkpoint) and the visualization dump (visualize), which
+    run in one process, in several (WORLD_SIZE=2)."""
+    if key in ("clip_checkpoint", "visualize"):
+        monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_distil.main(_opts(str(tmp_path), str(tmp_path), 1, key,
                                 value))
+
+
+def test_train_cli_evaluates_with_a_clip_checkpoint(tmp_path):
+    """clip_checkpoint a CLIP checkpoint file (synthesised, tiny-test):
+    the epoch logs Eval Grounding with finite metrics, whose DistilLoss is
+    the best checkpoint's; visualize dumps the val scene."""
+    import re
+
+    from dropclip_tpu_torch.teachers.convert import \
+        synthetic_openai_state_dict
+
+    data, clip = str(tmp_path / "data"), str(tmp_path / "clip.pt")
+    write_fake_processed_dataset(data, n_scenes=4, n_objects=2, feat_dim=16,
+                                 fmt="npz")
+    torch.save(synthetic_openai_state_dict("tiny-test", seed=4), clip)
+    save = train_distil.main(_opts(
+        data, str(tmp_path / "exp"), 1, "clip_model", "tiny-test",
+        "clip_checkpoint", clip, "eval_task", "grounding", "visualize",
+        "True"))
+    with open(os.path.join(save, "train.log")) as f:
+        log = f.read()
+    evals = re.findall(r"Eval Grounding: Epoch=\[(\d)/1\] (\{.*\})", log)
+    assert [e for e, _ in evals] == ["0"]
+    for _, res in evals:
+        res = eval(res)
+        assert set(res) == {"mIoU", "Pr@25", "Pr@50", "Pr@75", "DistilLoss"}
+        assert all(np.isfinite(v) for v in res.values())
+    losses = [eval(r)["DistilLoss"] for _, r in evals]
+    assert restore_checkpoint(save)["best_val"] == pytest.approx(min(losses))
+    vis = os.path.join(save, "vis", "epoch-0", "rank-0")
+    assert sorted(os.listdir(vis)) == ["outputs.npz", "outputs.pcd"]
+    with np.load(os.path.join(vis, "outputs.npz")) as z:
+        assert z["outputs"].shape == z["targets"].shape
+        assert z["outputs"].shape[1] == 16
