@@ -83,7 +83,28 @@
    ground truths shifted by one query), ``validate_upper_bound`` on both,
    ``GroundingPipeline.from_checkpoint`` against a pipeline built in
    process (1e-6), ``tools.make_visualizations``;
-8. prints the ``kernels`` JSON line, the card line and, last,
+8. teachers: K5 at the new shapes (float32 (1, 3026, 6, 64) and
+   (1, 16130, 6, 64) of DINO v1, bf16 (8, 3073, 16, 64) of DINOv2) and K4
+   at DINOv2's (8, 1370, 16, 64), each against its plain version with the
+   dropped-key control and timed; DINOv2-L/14 in bf16 from a
+   HuggingFace-layout file drawn from a seed on 8 frames at 336x448,
+   518x518 and 672x896 (K3, K4, K5 by the JAX predicates, K6 2 and K7 47
+   per forward, from the counters), card against CPU at 2 layers (planted
+   fault: LayerScale ls1 dropped), ``dino_extract.main`` in cls and patch
+   modes; DINO v1 ViT-S/8 at stride 4 in float32 at 224x224 and 512x512
+   (descriptors, binned, saliency: K5 12 or 11 per forward), card
+   against CPU at 224x224 (planted fault: the +0.1 pos-embed trick left
+   out), ``dino_extract.main --family dino_v1`` on two frames (cv2's
+   resize replaced by nearest-pixel sampling where cv2 is absent); K6
+   and K7 at the teachers' rows and eps (float32 (16130, 384), DINOv2's
+   8 x 3073 rows of 1024 in both types) against their plain versions
+   with a planted fault each, and timed; RN50 from an OpenAI-layout file
+   (pooled, patch and text features against the CPU, a planted fault
+   each); ``clip_extract.main``
+   with ViT-L/14@336px (cls, patch, tiled) and RN50 (patch; cls and
+   tiled raise); one ingest chunk on the per-view prompt path against
+   the packed route; profiles of one forward of each teacher;
+9. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero. Without a CUDA card the
@@ -200,6 +221,31 @@ def ptxas_entries(log):
 def bf16_ulps(err, ref_max):
     """An error in bf16 ulps at the magnitude ``ref_max``."""
     return err / 2.0 ** (np.floor(np.log2(max(ref_max, 1e-30))) - 7)
+
+
+class Launches:
+    """Launches of K3-K7 over a ``with`` block: each counter is set to 0
+    on entry and read on exit (after a sync) into ``n``."""
+
+    def __enter__(self):
+        from dropclip_tpu_torch.ops import attention as att
+        from dropclip_tpu_torch.ops.layernorm import add_layer_norm, \
+            layer_norm
+
+        self.counters = dict(K3=att.oneshot_attention_packed,
+                             K4=att.oneshot_attention,
+                             K5=att.flash_attention_padded, K6=layer_norm,
+                             K7=add_layer_norm)
+        torch.cuda.synchronize()  # work queued before the block is not its
+        for c in self.counters.values():
+            c.launches = 0
+        self.t = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.wall = time.time() - self.t
+        self.n = {k: c.launches for k, c in self.counters.items()}
 
 
 def make_clouds(n_scenes):
@@ -440,6 +486,18 @@ def k1_phase(pipe, clouds, rgbs, report):
     return f32
 
 
+def ln_close(got, ref, dtype, floor=2.0 ** -10):
+    """K6/K7's rule: float32 rtol and atol 1e-5; bf16 within one bf16
+    ulp of the plain result, the ulp floored at ``floor`` (2^-10 at large
+    row counts, where float32 reduction order can flip a value that
+    cancels below 2^-13)."""
+    got, ref = got.float(), ref.float()
+    if dtype == torch.float32:
+        return torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(floor))) - 7)
+    return bool(((got - ref).abs() <= ulp).all())
+
+
 def k6_phase(report):
     """K6 against its plain version at every shape its paths give it: the
     text tower's (Q*77, 768) rows (serve and ingest queries) and the ViT-L
@@ -468,13 +526,8 @@ def k6_phase(report):
         ref = layer_norm_plain(x, s, b).float()
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        if dtype == torch.bfloat16:
-            ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(
-                floor))) - 7)
-            ok = bool(((got - ref).abs() <= ulp).all())
-        else:
-            ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
-        check(ok, f"K6 {dtype} ({n}, {c}): max err {err}")
+        check(ln_close(got, ref, dtype, floor),
+              f"K6 {dtype} ({n}, {c}): max err {err}")
         del got, ref
         es = x.element_size()
         nbytes = 2 * x.numel() * es + 2 * c * 4
@@ -1047,6 +1100,14 @@ ATTN_DESIGNS = {"v3": "v3 wgmma, stage C(i) and the softmax cut: S = Q.K^T "
                 "f32": "float32 instance on the CUDA cores"}
 
 
+def attention_f32_close(got, ref, v):
+    """The float32 instance's limit: rtol 1e-4, atol 1e-5 * max|ref|.
+    Returns (within, the limit in words)."""
+    atol = 1e-5 * float(ref.abs().max())
+    return (torch.allclose(got, ref, rtol=1e-4, atol=atol),
+            f"rtol 1e-4, atol {atol:.3e}")
+
+
 def dropped_key_control(q, k, v, causal):
     """A planted fault for the limits: masked softmax attention (the plain
     K5 order) with the last key left out, as an off-by-one in the key mask
@@ -1060,6 +1121,97 @@ def dropped_key_control(q, k, v, causal):
         s.masked_fill_(~keep, torch.finfo(torch.float32).min)
     p = torch.softmax(s, dim=-1).to(q.dtype).float()
     return (p @ vf).to(q.dtype).permute(0, 2, 1, 3)
+
+
+def attention_row(tag, b, t, h, causal, dtype, f32_control=False):
+    """One attention shape (B, T, H, 64) against its plain version on
+    three seeds (bf16; one in float32), timed with the plain version, SDPA
+    and the bound. bf16 must stay within ATTN_ULPS of max|ref| and the
+    dropped-key control above it; float32 within ``attention_f32_close``,
+    and with ``f32_control`` the control outside it."""
+    import torch.nn.functional as F
+
+    from dropclip_tpu_torch.kernels.attention import instance
+    from dropclip_tpu_torch.ops import attention as att
+
+    errs = []
+    for seed in range(3 if dtype == torch.bfloat16 else 1):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + seed)
+        q, k, v = (torch.randn((b, t, h, 64), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        if tag.startswith("K3"):
+            args = [x.reshape(b, t, h * 64) for x in (q, k, v)]
+            kern = lambda: att.oneshot_attention_packed(*args, h)
+            plain = lambda: att.oneshot_attention_packed_plain(*args, h)
+        elif tag.startswith("K4"):
+            kern = lambda: att.oneshot_attention(q, k, v)
+            plain = lambda: att.oneshot_attention_plain(q, k, v)
+        else:
+            kern = lambda: att.flash_attention_padded(q, k, v, causal)
+            plain = lambda: att.flash_attention_plain(q, k, v, causal)
+        got, ref = kern().float(), plain().float().reshape(q.shape)
+        got = got.reshape(q.shape)
+        torch.cuda.synchronize()
+        ref_max = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        check(bool(torch.isfinite(got).all()), f"{tag}: not finite")
+        if dtype == torch.float32:
+            ok, lim = attention_f32_close(got, ref, v)
+            check(ok, f"{tag} (B={b}, T={t}, H={h}): max err {err} vs "
+                  f"max|ref| {ref_max} ({lim})")
+        errs.append(dict(seed=SEED + 2 + seed, max_abs_err=err,
+                         ref_max=ref_max, ulps=bf16_ulps(err, ref_max)))
+        if seed == 0 and (dtype == torch.bfloat16 or f32_control):
+            ctrl = dropped_key_control(q, k, v, causal).float()
+            ctrl_err = float((ctrl - ref).abs().max())
+            ctrl_ulps = bf16_ulps(ctrl_err, ref_max)
+            if dtype == torch.float32:
+                ctrl_ok, _ = attention_f32_close(ctrl, ref, v)
+                print(f"{tag}: control (last key dropped) max err "
+                      f"{ctrl_err:.3e}", flush=True)
+                check(not ctrl_ok, f"{tag}: the float32 limit does not see "
+                      f"the last key dropped (max err {ctrl_err})")
+            del ctrl
+        del got, ref
+    worst = max(e["ulps"] for e in errs)
+    if dtype == torch.bfloat16:
+        print(f"{tag}: max err over seeds {[e['ulps'] for e in errs]} "
+              f"bf16 ulps; control (last key dropped) {ctrl_ulps:.2f} "
+              f"ulps", flush=True)
+        check(worst <= ATTN_ULPS < ctrl_ulps,
+              f"{tag} (B={b}, T={t}, H={h}): {worst} bf16 ulps (limit "
+              f"{ATTN_ULPS}, control {ctrl_ulps})")
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=causal)
+    # work the data needs: causal keeps t(t+1)/2 of the t^2 pairs
+    pairs = t * (t + 1) / 2 if causal else t * t
+    flops = 4.0 * b * h * pairs * 64
+    nbytes = 4.0 * b * t * h * 64 * q.element_size()
+    peak = PEAK_FLOPS[dtype]
+    row = dict(b=b, t=t, h=h, d=64, causal=causal, dtype=str(dtype),
+               max_abs_err=max(e["max_abs_err"] for e in errs),
+               max_err_bf16_ulps=worst, seeds=errs,
+               ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3),
+               library_ms=cuda_ms(library, 10),
+               bound_ms=max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+               bound_by="operations" if flops / peak > nbytes / PEAK_BYTES
+               else "bytes", gflop=flops / 1e9,
+               design=ATTN_DESIGNS[instance(dtype, 64)])
+    if dtype == torch.bfloat16 or f32_control:
+        row["control_max_abs_err" if dtype == torch.float32
+            else "control_bf16_ulps"] = (ctrl_err if dtype == torch.float32
+                                         else ctrl_ulps)
+    row["tflops"] = flops / row["ms"] / 1e9
+    print(f"{tag} (B={b}, T={t}, H={h}, D=64{', causal' if causal else ''}"
+          f", {dtype}): err {row['max_abs_err']:.3e} ({worst:.2f} bf16 "
+          f"ulps) | kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
+          f"TFLOP/s) plain {row['plain_ms']:.4f} ms sdpa "
+          f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return row
 
 
 def attention_phase(report):
@@ -1076,9 +1228,7 @@ def attention_phase(report):
     off-by-one in the key mask. float32: rtol 1e-4, atol 1e-5 * max|ref|.
     ``F.scaled_dot_product_attention`` is timed as the library yardstick
     only."""
-    import torch.nn.functional as F
-
-    from dropclip_tpu_torch.kernels.attention import instance, wgmma_selftest
+    from dropclip_tpu_torch.kernels.attention import wgmma_selftest
     from dropclip_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -1098,79 +1248,7 @@ def attention_phase(report):
              ("K5 DINO", 1, 3026, 6, False, torch.bfloat16),
              ("K5 causal", 32, 77, 12, True, torch.bfloat16),
              ("K3 f32", 8, 769, 16, False, torch.float32)]
-    out = {}
-    for tag, b, t, h, causal, dtype in cases:
-        errs = []
-        for seed in range(3 if dtype == torch.bfloat16 else 1):
-            gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + seed)
-            q, k, v = (torch.randn((b, t, h, 64), generator=gen,
-                                   device="cuda").to(dtype) for _ in range(3))
-            if tag.startswith("K3"):
-                args = [x.reshape(b, t, h * 64) for x in (q, k, v)]
-                kern = lambda: att.oneshot_attention_packed(*args, h)
-                plain = lambda: att.oneshot_attention_packed_plain(*args, h)
-            elif tag == "K4":
-                kern = lambda: att.oneshot_attention(q, k, v)
-                plain = lambda: att.oneshot_attention_plain(q, k, v)
-            else:
-                kern = lambda: att.flash_attention_padded(q, k, v, causal)
-                plain = lambda: att.flash_attention_plain(q, k, v, causal)
-            got, ref = kern().float(), plain().float()
-            torch.cuda.synchronize()
-            ref_max = float(ref.abs().max())
-            err = float((got - ref).abs().max())
-            check(bool(torch.isfinite(got).all()), f"{tag}: not finite")
-            if dtype == torch.float32:
-                ok = torch.allclose(got, ref.reshape(got.shape), rtol=1e-4,
-                                    atol=1e-5 * ref_max)
-                check(ok, f"{tag} (B={b}, T={t}, H={h}): max err {err} vs "
-                      f"max|ref| {ref_max}")
-            errs.append(dict(seed=SEED + 2 + seed, max_abs_err=err,
-                             ref_max=ref_max,
-                             ulps=bf16_ulps(err, ref_max)))
-            if seed == 0 and dtype == torch.bfloat16:
-                ctrl = dropped_key_control(q, k, v, causal).float()
-                ctrl_ulps = bf16_ulps(float((ctrl - ref.reshape(
-                    ctrl.shape)).abs().max()), ref_max)
-                del ctrl
-            del got, ref
-        worst = max(e["ulps"] for e in errs)
-        if dtype == torch.bfloat16:
-            print(f"{tag}: max err over seeds {[e['ulps'] for e in errs]} "
-                  f"bf16 ulps; control (last key dropped) {ctrl_ulps:.2f} "
-                  f"ulps", flush=True)
-            check(worst <= ATTN_ULPS < ctrl_ulps,
-                  f"{tag} (B={b}, T={t}, H={h}): {worst} bf16 ulps (limit "
-                  f"{ATTN_ULPS}, control {ctrl_ulps})")
-        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        library = lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                          is_causal=causal)
-        # work the data needs: causal keeps t(t+1)/2 of the t^2 pairs
-        pairs = t * (t + 1) / 2 if causal else t * t
-        flops = 4.0 * b * h * pairs * 64
-        nbytes = 4.0 * b * t * h * 64 * q.element_size()
-        peak = PEAK_FLOPS[dtype]
-        row = dict(b=b, t=t, h=h, d=64, causal=causal, dtype=str(dtype),
-                   max_abs_err=max(e["max_abs_err"] for e in errs),
-                   max_err_bf16_ulps=worst, seeds=errs,
-                   ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3),
-                   library_ms=cuda_ms(library, 10),
-                   bound_ms=max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
-                   bound_by="operations" if flops / peak > nbytes / PEAK_BYTES
-                   else "bytes", gflop=flops / 1e9,
-                   design=ATTN_DESIGNS[instance(dtype, 64)])
-        if dtype == torch.bfloat16:
-            row["control_bf16_ulps"] = ctrl_ulps
-        row["tflops"] = flops / row["ms"] / 1e9
-        out[tag] = row
-        print(f"{tag} (B={b}, T={t}, H={h}, D=64{', causal' if causal else ''}"
-              f", {dtype}): err {row['max_abs_err']:.3e} ({worst:.2f} bf16 "
-              f"ulps) | kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
-              f"TFLOP/s) plain {row['plain_ms']:.4f} ms sdpa "
-              f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
-        del q, k, v, qh, kh, vh
-        torch.cuda.empty_cache()
+    out = {case[0]: attention_row(*case) for case in cases}
     report["attention"] = out
     att.oneshot_attention_packed.launches = 0
     att.oneshot_attention.launches = 0
@@ -1199,12 +1277,9 @@ def k7_phase(report):
     got_s, got_y = add_layer_norm(r, d, s, b)
     ref_s, ref_y = add_layer_norm_plain(r, d, s, b)
     torch.cuda.synchronize()
-    ref = ref_y.float()
-    err = float((got_y.float() - ref).abs().max())
-    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -10)))
-                  - 7)
+    err = float((got_y.float() - ref_y.float()).abs().max())
     check(torch.equal(got_s, ref_s)
-          and bool(((got_y.float() - ref).abs() <= ulp).all()),
+          and ln_close(got_y, ref_y, torch.bfloat16),
           f"K7 ({rows}, {c}) bf16: max err {err}")
     sb, bb = s.bfloat16(), b.bfloat16()
 
@@ -1292,26 +1367,16 @@ def ingest_phase(extractor, report):
     """Full-width ingest (bench.py's fusion shape): one warm scene, then
     one timed scene with the launch counters set to 0 before it. Returns
     the scenes' launch counts."""
-    from dropclip_tpu_torch.ops import attention as att
-    from dropclip_tpu_torch.ops.layernorm import add_layer_norm, layer_norm
-
     writer = NpzWriter()
     scenes = [make_ingest_scene(s, INGEST_VIEWS, (480, 640), 10, 400)
               for s in (1, 2)]
     t = time.time()
     warm = ingest_scene(extractor, scenes[0], "warm", writer)
     print(f"warm ingest scene: {time.time() - t:.2f} s {warm}", flush=True)
-    counters = (att.oneshot_attention_packed, att.oneshot_attention,
-                att.flash_attention_padded, layer_norm, add_layer_norm)
-    for c in counters:
-        c.launches = 0
     chunks0 = extractor.chunks
-    torch.cuda.synchronize()
-    t = time.time()
-    stats = ingest_scene(extractor, scenes[1], "scene", writer)
-    wall = time.time() - t
-    n = {name: c.launches for name, c in zip(("K3", "K4", "K5", "K6", "K7"),
-                                             counters)}
+    with Launches() as counted:
+        stats = ingest_scene(extractor, scenes[1], "scene", writer)
+    wall, n = counted.wall, counted.n
     chunks = extractor.chunks - chunks0
     pairs = present_pairs(scenes[1]["segs"])
     check_scene(stats, writer.last, "full-width ingest")
@@ -2807,6 +2872,680 @@ def eval_phase(cfg, cli, report):
     return launches
 
 
+# the teachers: DINOv2, DINO v1, the RN towers and the extraction CLIs
+TEACHER_DIR = os.path.join(ROOT, "build", "teachers")
+DINOV2_SIZES = ((336, 448), (518, 518), (672, 896))
+TEACHER_COS = 0.999  # card bf16 against CPU float32, min cosine per row
+# RN50's pooled features: the attention pool's logits are small on seeded
+# weights, so its planted fault (q and k swapped) moves them little
+RN_POOL_COS = 0.9999
+TEACHER_TAGS = (("K3/K4/K5", "attention_kernel"), ("K6", "_ln_rows"),
+                ("K7", "_add_ln_rows"))
+DINO_V1_REL = 1e-4  # DINO v1 float32 card against CPU, of max|ref|
+
+
+def add_launches(total, n):
+    for k, v in n.items():
+        total[k] = total.get(k, 0) + v
+
+
+def expect(n, what, **want):
+    """The counts ``n`` equal ``want`` (kernels not named: 0)."""
+    full = {k: want.get(k, 0) for k in ("K3", "K4", "K5", "K6", "K7")}
+    check(n == full, f"{what}: launches {n}, want {full}")
+
+
+def min_cos(a, b):
+    """Min cosine over the last-axis vectors of two tensors (any device,
+    any dtype)."""
+    a, b = (x.detach().float().cpu().reshape(-1, x.shape[-1])
+            for x in (a, b))
+    return float(torch.nn.functional.cosine_similarity(a, b).min())
+
+
+def dinov2_route(t):
+    """The kernel the JAX predicates name for DINOv2-L/14 (16 heads of
+    64) in bf16 at T tokens."""
+    from dropclip_tpu_torch.ops import attention as att
+
+    if att.supports_packed(t, 16, 64, False, itemsize=2):
+        return "K3"
+    return "K4" if att.supports(t, 64, False, itemsize=2) else "K5"
+
+
+def npy_frames(frames, tag):
+    """The frames as .npy files under build/teachers/<tag>/, which the
+    CLIs read with ``np.load`` in place of their cv2 image reader (the
+    frames are arrays, and cv2 is optional); returns the glob."""
+    d = os.path.join(TEACHER_DIR, tag)
+    os.makedirs(d, exist_ok=True)
+    for i, f in enumerate(frames):
+        np.save(os.path.join(d, f"frame{i:02d}.npy"), f)
+    return os.path.join(d, "*.npy")
+
+
+def npy_outputs(d):
+    return {n: np.load(os.path.join(d, n)) for n in sorted(os.listdir(d))}
+
+
+def dinov2_phase(frames, total, report):
+    """DINOv2-L/14 at full width in bf16 from a HuggingFace-layout file
+    drawn from SEED, read through ``from_hf_dinov2`` as ``dino_extract``
+    does: ``Dinov2Extractor`` on 8 frames at 336x448, 518x518 and
+    672x896, each layer's attention on the kernel the JAX predicates name
+    (K3, K4, K5), K6 2 and K7 47 per forward; card bf16 against the CPU in
+    float32 at a depth cut to 2 layers at each size (cosine >= TEACHER_COS;
+    planted fault: LayerScale ls1 dropped); ``dino_extract.main`` in cls
+    and patch modes; a profile of one extract at each size. Returns the
+    file's path (the caller deletes it)."""
+    from dropclip_tpu_torch.teachers import dinov2
+    from dropclip_tpu_torch.tools import dino_extract
+
+    path = os.path.join(TEACHER_DIR, "dinov2_vitl14_hf_seed0.pt")
+    t = time.time()
+    torch.save(dinov2.synthetic_hf_dinov2_state_dict("dinov2_vitl14",
+                                                     seed=SEED), path)
+    made = time.time() - t
+    t = time.time()
+    sd = dinov2.from_hf_dinov2(torch.load(path, map_location="cpu"))
+    model = dinov2.build_dinov2("dinov2_vitl14", dtype=torch.bfloat16,
+                                device="cuda")
+    model.load_state_dict(sd)
+    load = time.time() - t
+    out = dict(file_mib=os.path.getsize(path) / 2 ** 20, made_s=made,
+               read_s=load, sizes={})
+    print(f"DINOv2-L/14 file (HF layout, float32, {out['file_mib']:.0f} "
+          f"MiB): made in {made:.1f} s, read in {load:.1f} s", flush=True)
+    outputs = {}
+    for size in DINOV2_SIZES:
+        ex = dinov2.Dinov2Extractor(model, img_resize=size, batch_size=8)
+        ex._run(frames)  # warm-up: cuBLAS heuristics, Triton
+        with Launches() as n:
+            cls, patch = ex._run(frames)
+        add_launches(total, n.n)
+        t_tok = (size[0] // 14) * (size[1] // 14) + 1
+        route = dinov2_route(t_tok)
+        x = torch.randn((8,) + size + (3,), device="cuda")
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: model(x), 3)
+        check(tuple(patch.shape) == (8, size[0] // 14, size[1] // 14, 1024)
+              and tuple(cls.shape) == (8, 1024)
+              and cls.dtype == patch.dtype == torch.float32
+              and bool(torch.isfinite(patch).all()),
+              f"DINOv2 at {size}: {tuple(cls.shape)} {tuple(patch.shape)}")
+        expect(n.n, f"DINOv2-L/14 at {size} (T={t_tok})",
+               **{route: 24, "K6": 2, "K7": 47})
+        outputs[size] = (cls, patch)
+        out["sizes"][f"{size[0]}x{size[1]}"] = dict(
+            t=t_tok, route=route, launches=n.n, extract_wall_s=n.wall,
+            forward_ms=fwd_ms)
+        print(f"DINOv2-L/14 bf16, 8 frames at {size[0]}x{size[1]} "
+              f"(T={t_tok}): {route} per layer, launches {n.n}; extract "
+              f"{n.wall:.3f} s wall, forward {fwd_ms:.2f} ms (CUDA events)",
+              flush=True)
+    del x
+    profile_phase(tuple((f"dinov2_{h}x{w}", lambda ex=dinov2.Dinov2Extractor(
+        model, img_resize=(h, w), batch_size=8): ex._run(frames))
+        for h, w in DINOV2_SIZES), TEACHER_TAGS, report)
+    out["vs_cpu"] = dinov2_cpu_check(sd, frames)
+    for mode in ("cls", "patch"):
+        glob_ = npy_frames(frames, "dinov2_frames")
+        dest = os.path.join(TEACHER_DIR, f"dinov2_{mode}")
+        read, dino_extract._read_rgb = dino_extract._read_rgb, np.load
+        try:
+            with Launches() as n:
+                dino_extract.main(["--images", glob_, "--out", dest,
+                                   "--model", "dinov2_vitl14",
+                                   "--checkpoint", path, "--mode", mode,
+                                   "--resize", "336", "448",
+                                   "--batch-size", "8"])
+        finally:
+            dino_extract._read_rgb = read
+        add_launches(total, n.n)
+        files = npy_outputs(dest)
+        ref = outputs[(336, 448)][0 if mode == "cls" else 1]
+        got = torch.as_tensor(np.stack(list(files.values())))
+        cos = min_cos(got, ref)
+        expect(n.n, f"dino_extract {mode}", K3=24, K6=2, K7=47)
+        check(len(files) == 8 and cos >= 0.99999,
+              f"dino_extract {mode}: {len(files)} files, cosine {cos} to "
+              "the extractor's")
+        out[f"dino_extract_{mode}"] = dict(wall_s=n.wall, files=len(files),
+                                          min_cos_to_extractor=cos)
+        print(f"dino_extract --mode {mode}: 8 .npy files {got.shape[1:]} "
+              f"in {n.wall:.1f} s (model read included), cosine to the "
+              f"extractor {cos:.7f}, launches {n.n}", flush=True)
+    report["dinov2"] = out
+    return path
+
+
+def dinov2_cpu_check(sd, frames):
+    """DINOv2-L/14 cut to 2 layers from the file's weights: the card in
+    bf16 against the CPU in float32, one frame at each size, cls and
+    patch tokens at cosine >= TEACHER_COS; the planted fault (ls1 dropped
+    in both card layers) must fall below it."""
+    from dropclip_tpu_torch.teachers import dinov2
+
+    cut = {k: v for k, v in sd.items() if not k.startswith("blocks.")
+           or int(k.split(".")[1]) < 2}
+    models = {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        models[dev] = dinov2.build_dinov2("dinov2_vitl14", dtype=dtype,
+                                          device=dev, layers=2)
+        models[dev].load_state_dict(cut)
+    res = {}
+    for size in DINOV2_SIZES:
+        got, ref = (dinov2.Dinov2Extractor(m, img_resize=size)._run(
+            frames[:1]) for m in (models["cuda"], models["cpu"]))
+        res[f"{size[0]}x{size[1]}"] = min(min_cos(got[0], ref[0]),
+                                          min_cos(got[1], ref[1]))
+    with torch.no_grad():
+        for blk in models["cuda"].blocks:
+            blk.ls1.fill_(1.0)
+    got = dinov2.Dinov2Extractor(models["cuda"])._run(frames[:1])
+    ref = dinov2.Dinov2Extractor(models["cpu"])._run(frames[:1])
+    fault = min(min_cos(got[0], ref[0]), min_cos(got[1], ref[1]))
+    print(f"DINOv2-L/14 cut to 2 layers, card bf16 vs CPU float32, min "
+          f"cosine {res} (limit {TEACHER_COS}); planted fault, ls1 dropped: "
+          f"{fault:.6f}", flush=True)
+    check(min(res.values()) >= TEACHER_COS, f"DINOv2 card vs CPU {res}")
+    check(fault < TEACHER_COS, "the DINOv2 limit does not see ls1 dropped")
+    return dict(min_cos=res, limit=TEACHER_COS, planted_ls1_dropped=fault)
+
+
+def no_pos_trick(model):
+    """A planted fault: DINO v1's pos embed resized without the +0.1
+    scale trick."""
+    from dropclip_tpu_torch.ops.resize import bicubic_resize
+
+    def interp(gh, gw):
+        og = model.image_resolution // model.patch_size
+        pe = model.pos_embed
+        resized = bicubic_resize(pe[0, 1:].reshape(og, og, model.width),
+                                 (gh, gw))
+        return torch.cat([pe[:, :1], resized.reshape(1, gh * gw, -1)], 1)
+
+    model._interp_pos = interp
+
+
+def dino_v1_phase(frames, total, report):
+    """DINO v1 ViT-S/8 at stride 4 in float32 (the ``ViTExtractor``
+    default) from a facebookresearch-layout state dict drawn from SEED:
+    key descriptors of layer 11, raw and log-binned, and the saliency,
+    on normalised inputs at 224x224 (T = 3026) and 512x512 (T = 16130).
+    Each descriptor forward runs 12 K5 launches and 25 K6, each saliency
+    forward 11 K5 and one materialised layer. At 224x224 the card against
+    the CPU within DINO_V1_REL of max|ref|; planted fault: the +0.1
+    pos-embed trick left out. A profile of one descriptor forward at
+    512x512. Then ``dino_extract`` on two of ``frames`` (``dino_v1_cli``).
+    """
+    from dropclip_tpu_torch.teachers import dino_v1
+
+    path = os.path.join(TEACHER_DIR, "dino_vits8_seed0.pt")
+    raw = dino_v1.synthetic_dino_v1_state_dict("dino_vits8", seed=SEED)
+    torch.save(raw, path)
+    sd = dino_v1.from_dino_v1(raw)
+    ex = dino_v1.ViTExtractor("dino_vits8", stride=4, state_dict=sd,
+                              device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    out, batches, card = {}, {}, {}
+    for px in (224, 512):
+        batch = torch.randn((1, px, px, 3), generator=gen).numpy()
+        batches[px] = batch
+        t_tok = (1 + (px - 8) // 4) ** 2 + 1
+        row = dict(t=t_tok)
+        for what, run, want in (
+                ("descriptors", lambda: ex.extract_descriptors(batch),
+                 dict(K5=12, K6=25)),
+                ("binned", lambda: ex.extract_descriptors(batch, bin=True),
+                 dict(K5=12, K6=25)),
+                ("saliency", lambda: ex.extract_saliency_maps(batch),
+                 dict(K5=11, K6=25))):
+            run()  # warm-up
+            with Launches() as n:
+                res = run()
+            add_launches(total, n.n)
+            expect(n.n, f"DINO v1 {what} at {px}x{px}", **want)
+            check(bool(torch.isfinite(res).all()), f"DINO v1 {what} at {px}")
+            row[what] = dict(wall_s=n.wall, launches=n.n,
+                             shape=list(res.shape))
+            print(f"DINO v1 S/8 stride 4 float32 {what} at {px}x{px} "
+                  f"(T={t_tok}): {tuple(res.shape)} in {n.wall * 1e3:.2f} "
+                  f"ms wall, launches {n.n}", flush=True)
+            if px == 224:
+                card[what] = res.cpu()
+            del res
+        x = torch.as_tensor(batch, device="cuda")
+        with torch.no_grad():
+            row["forward_ms"] = cuda_ms(lambda: ex.model(x), 3)
+        print(f"DINO v1 forward at {px}x{px}: {row['forward_ms']:.2f} ms "
+              "(CUDA events)", flush=True)
+        out[px] = row
+    profile_phase((("dino_v1_512", lambda: ex.extract_descriptors(
+        batches[512])),), TEACHER_TAGS, report)
+    cpu = dino_v1.ViTExtractor("dino_vits8", stride=4, state_dict=sd,
+                               device="cpu")
+    errs = {}
+    for what, run in (("descriptors", cpu.extract_descriptors),
+                      ("saliency", cpu.extract_saliency_maps)):
+        ref = run(batches[224])
+        errs[what] = float((card[what] - ref).abs().max()
+                           / ref.abs().max())
+    no_pos_trick(cpu.model)
+    ref = cpu.extract_descriptors(batches[224])
+    fault = float((card["descriptors"] - ref).abs().max() / ref.abs().max())
+    print(f"DINO v1 at 224x224, card vs CPU float32: max|d| / max|ref| "
+          f"{errs} (limit {DINO_V1_REL}); planted fault, the +0.1 pos-embed "
+          f"trick left out: {fault:.3e}", flush=True)
+    check(max(errs.values()) <= DINO_V1_REL, f"DINO v1 card vs CPU {errs}")
+    check(fault > DINO_V1_REL, "the DINO v1 limit does not see the +0.1 "
+          "trick left out")
+    report["dino_v1"] = dict(
+        rows={str(k): v for k, v in out.items()}, vs_cpu=errs,
+        limit=DINO_V1_REL, planted_no_pos_trick=fault,
+        dino_extract=dino_v1_cli(ex, path, frames[:2], total))
+    return ex
+
+
+def numpy_cv2():
+    """A stand-in module for cv2 where it is not installed (the card's
+    machine): ``resize`` samples the nearest source pixel of each output
+    pixel's centre, so the same frame gives the same array everywhere."""
+    import types
+
+    def resize(image, size, interpolation=None):
+        w, h = size
+        rows = ((np.arange(h) + 0.5) * image.shape[0] / h).astype(np.int64)
+        cols = ((np.arange(w) + 0.5) * image.shape[1] / w).astype(np.int64)
+        return np.ascontiguousarray(image[rows][:, cols])
+
+    mod = types.ModuleType("cv2")
+    mod.resize, mod.INTER_LANCZOS4 = resize, 4
+    return mod
+
+
+def dino_v1_cli(ex, path, frames, total):
+    """``dino_extract.main --family dino_v1`` in process on 480x640 .npy
+    frames from the facebookresearch-layout file: layer 11 key
+    descriptors at a short side of 224 (224x299, T = 55 x 73 + 1 = 4016,
+    K5 12 and K6 25 per frame); cv2 replaced by ``numpy_cv2`` where it is
+    absent.
+    Each file equals the extractor's descriptors of the same frame within
+    1e-6 of max|ref|."""
+    import importlib
+    import importlib.util
+
+    from dropclip_tpu_torch.tools import dino_extract
+
+    glob_ = npy_frames(frames, "dino_v1_frames")
+    dest = os.path.join(TEACHER_DIR, "dino_v1_key")
+    stub = importlib.util.find_spec("cv2") is None
+    cv2 = "stand-in" if stub else importlib.import_module("cv2").__version__
+    read, dino_extract._read_rgb = dino_extract._read_rgb, np.load
+    if stub:
+        sys.modules["cv2"] = numpy_cv2()
+    try:
+        with Launches() as n:
+            dino_extract.main(["--images", glob_, "--out", dest,
+                               "--family", "dino_v1", "--model",
+                               "dino_vits8", "--checkpoint", path,
+                               "--stride", "4", "--layer", "11", "--facet",
+                               "key", "--load-size", "224"])
+        refs = [ex.extract_descriptors(ex.preprocess(f, load_size=224)
+                                       ).cpu().numpy() for f in frames]
+    finally:
+        dino_extract._read_rgb = read
+        if stub:
+            del sys.modules["cv2"]
+    add_launches(total, n.n)
+    files = list(npy_outputs(dest).values())
+    errs = [float(np.abs(g - r).max() / np.abs(r).max())
+            for g, r in zip(files, refs)]
+    print(f"dino_extract --family dino_v1 (cv2 {cv2}): "
+          f"{len(files)} files {files[0].shape} in {n.wall:.1f} s (model "
+          f"read included), launches {n.n}; max|d| / max|ref| to the "
+          f"extractor {max(errs):.3e}", flush=True)
+    expect(n.n, "dino_extract dino_v1", K5=12 * len(frames),
+           K6=25 * len(frames))
+    check(len(files) == len(frames) and all(
+        f.shape == r.shape == (1, 1, 4015, 384) for f, r in zip(files, refs))
+        and max(errs) <= 1e-6, f"dino_extract dino_v1: {errs}")
+    return dict(wall_s=n.wall, launches=n.n, files=len(files),
+                max_rel_to_extractor=max(errs), cv2=cv2)
+
+
+def swap_qk(attn, q="q_proj", k="k_proj"):
+    """A planted fault: an attention's q and k projections swapped."""
+    with torch.no_grad():
+        for a in ("weight", "bias"):
+            qa, ka = getattr(getattr(attn, q), a), getattr(getattr(attn, k), a)
+            tmp = qa.clone()
+            qa.copy_(ka)
+            ka.copy_(tmp)
+
+
+def rn_phase(total, report):
+    """RN50 from an OpenAI-layout fp16 file drawn from SEED, through
+    ``build_clip_from``: bf16 on the card against float32 on the CPU for
+    ``encode_image`` at 224x224 (cosine >= RN_POOL_COS), the patch
+    features at 448x448 and ``encode_text`` (>= TEACHER_COS; K6 25 per
+    encode; the text attention is plain, as in JAX). Planted faults: the
+    attention pool's q and k swapped (pooled), patch rows shifted by one
+    (patch), the first text block's q and k swapped (text). A profile of
+    one patch forward. Returns the file's path."""
+    from dropclip_tpu_torch.teachers.convert import (
+        build_clip_from, synthetic_openai_state_dict)
+    from dropclip_tpu_torch.teachers.tokenizer import tokenize
+
+    path = os.path.join(TEACHER_DIR, "clip_rn50_seed0.pt")
+    t = time.time()
+    torch.save(synthetic_openai_state_dict("RN50", seed=SEED), path)
+    made = time.time() - t
+    models = {dev: build_clip_from("RN50", path, dtype=dtype, device=dev)
+              for dev, dtype in (("cuda", torch.bfloat16),
+                                 ("cpu", torch.float32))}
+    gen = torch.Generator().manual_seed(SEED + 7)
+    inputs = dict(image=torch.randn((4, 224, 224, 3), generator=gen),
+                  patch=torch.randn((4, 448, 448, 3), generator=gen),
+                  text=torch.as_tensor(tokenize(CLIP_PROMPTS)))
+    runs = dict(image=lambda m, x: m.encode_image(x),
+                patch=lambda m, x: m.get_patch_encodings(x),
+                text=lambda m, x: m.encode_text(x))
+    res, times = {}, {}
+    with torch.no_grad():
+        for what, x in inputs.items():
+            runs[what](models["cuda"], x.cuda())  # warm-up
+            with Launches() as n:
+                got = runs[what](models["cuda"], x.cuda())
+            add_launches(total, n.n)
+            expect(n.n, f"RN50 {what}", **({"K6": 25} if what == "text"
+                                            else {}))
+            ref = runs[what](models["cpu"], x)
+            res[what] = dict(min_cos=min_cos(got, ref), shape=list(
+                got.shape), wall_s=n.wall, launches=n.n, ref=ref)
+            xc = x.cuda()
+            times[what] = cuda_ms(lambda: runs[what](models["cuda"], xc), 3)
+        swap_qk(models["cuda"].visual.attnpool)
+        faults = dict(image=min_cos(models["cuda"].encode_image(
+            inputs["image"].cuda()), res["image"]["ref"]))
+        swap_qk(models["cuda"].visual.attnpool)
+        shifted = models["cuda"].visual.attnpool.forward_v
+        models["cuda"].visual.attnpool.forward_v = \
+            lambda x: torch.roll(shifted(x), 1, dims=1)
+        faults["patch"] = min_cos(models["cuda"].get_patch_encodings(
+            inputs["patch"].cuda()), res["patch"]["ref"])
+        swap_qk(models["cuda"].text.blocks[0].attn)
+        faults["text"] = min_cos(models["cuda"].encode_text(
+            inputs["text"].cuda()), res["text"]["ref"])
+    limits = dict(image=RN_POOL_COS, patch=TEACHER_COS, text=TEACHER_COS)
+    for what in res:
+        del res[what]["ref"]
+        res[what].update(forward_ms=times[what], limit=limits[what])
+    print(f"RN50 (OpenAI layout fp16, {os.path.getsize(path) / 2**20:.0f} "
+          f"MiB, made in {made:.1f} s), card bf16 vs CPU float32: "
+          + "; ".join(f"{w} {r['shape']} cosine {r['min_cos']:.6f}, "
+                      f"{r['forward_ms']:.2f} ms" for w, r in res.items())
+          + f"; planted faults {faults}", flush=True)
+    for what, r in res.items():
+        check(r["min_cos"] >= r["limit"], f"RN50 {what}: cosine "
+              f"{r['min_cos']} (limit {r['limit']})")
+        check(faults[what] < r["limit"], f"the RN50 {what} limit does not "
+              "see its planted fault")
+    report["rn50"] = dict(rows=res, faults=faults)
+    x = inputs["patch"].cuda()
+    model = build_clip_from("RN50", path, dtype=torch.bfloat16,
+                            device="cuda")
+    with torch.no_grad():
+        profile_phase((("rn50_patch_448", lambda: model.get_patch_encodings(
+            x)),), TEACHER_TAGS, report)
+    return path
+
+
+def clip_extract_phase(frames, rn_path, total, report):
+    """``clip_extract.main`` in process on 2 frames: ViT-L/14@336px (seed
+    weights) in cls, patch and tiled modes (K3 24 and K7 47 per cls
+    forward, 23 and 45 per patch forward), RN50 from its file in patch
+    mode; RN50's cls and tiled modes raise (the pool's class path takes
+    only its training grid, as in JAX)."""
+    from dropclip_tpu_torch.tools import clip_extract, dino_extract
+
+    glob_ = npy_frames(frames[:2], "clip_frames")
+    out = {}
+    read, dino_extract._read_rgb = dino_extract._read_rgb, np.load
+    try:
+        for model, ckpt, mode, shape, fwd in (
+                ("ViT-L/14@336px", None, "cls", (768,), 1),
+                ("ViT-L/14@336px", None, "patch", (24, 32, 768), 1),
+                ("ViT-L/14@336px", None, "tiled", (14, 14, 768), 26),
+                ("RN50", rn_path, "patch", (10, 14, 1024), 1)):
+            dest = os.path.join(TEACHER_DIR, f"clip_{model[:2]}_{mode}")
+            args = ["--images", glob_, "--out", dest, "--clip-model", model,
+                    "--mode", mode, "--batch-size", "16"]
+            if ckpt:
+                args += ["--clip-checkpoint", ckpt]
+            with Launches() as n:
+                clip_extract.main(args)
+            add_launches(total, n.n)
+            files = npy_outputs(dest)
+            check(len(files) == 2 and all(
+                f.shape == shape and f.dtype == np.float32
+                and np.isfinite(f).all() for f in files.values()),
+                f"clip_extract {model} {mode}: "
+                f"{[f.shape for f in files.values()]}")
+            if model == "RN50":
+                expect(n.n, f"clip_extract {model} {mode}")
+            elif mode == "patch":
+                expect(n.n, f"clip_extract {model} {mode}", K3=23 * fwd,
+                       K6=4 * fwd, K7=45 * fwd)
+            else:
+                expect(n.n, f"clip_extract {model} {mode}", K3=24 * fwd,
+                       K6=3 * fwd, K7=47 * fwd)
+            out[f"{model} {mode}"] = dict(wall_s=n.wall, launches=n.n)
+            print(f"clip_extract {model} --mode {mode}: 2 files {shape} in "
+                  f"{n.wall:.1f} s (model build included), launches {n.n}",
+                  flush=True)
+        for mode in ("cls", "tiled"):
+            try:
+                clip_extract.main(["--images", glob_, "--out",
+                                   os.path.join(TEACHER_DIR, "rn_" + mode),
+                                   "--clip-model", "RN50", "--mode", mode,
+                                   "--clip-checkpoint", rn_path])
+                raised = ""
+            except ValueError as e:
+                raised = str(e)
+            check("training grid" in raised, f"clip_extract RN50 {mode} "
+                  "ran at 336x448")
+    finally:
+        dino_extract._read_rgb = read
+    report["clip_extract"] = out
+
+
+def per_view_phase(total, report):
+    """One ingest chunk of the per-view prompt path
+    (``DROPCLIP_PACKED_PROMPTS=0``): the first 8 views of a full-width
+    ingest scene (480x640, 10 objects, ids 0-31) through the ViT-L/14@336px
+    teacher in bf16, one forward of 8 views x 12 objects (K3 24, K7 47,
+    K6 3); its present rows against the packed route's at cosine >=
+    TEACHER_COS, absent rows zero."""
+    args = SimpleNamespace(clip_model="ViT-L/14@336px", clip_checkpoint=None,
+                           visual_prompt="crop-mask", crop_num_levels=1,
+                           crop_expansion_ratio=0.15, batch_size=32)
+    from dropclip_tpu_torch.tools.preprocess_data import build_extractor
+
+    ex = build_extractor(args, device="cuda", seed=SEED)
+    raw = make_ingest_scene(1, 8, (480, 640), 10, 400)
+    ids = np.arange(32)
+    packed, present = ex.extract_obj_prior(raw["images"], raw["segs"],
+                                           obj_ids=ids)
+    os.environ["DROPCLIP_PACKED_PROMPTS"] = "0"
+    try:
+        with Launches() as n:
+            per_view, present_v = ex.extract_obj_prior(
+                raw["images"], raw["segs"], obj_ids=ids)
+    finally:
+        del os.environ["DROPCLIP_PACKED_PROMPTS"]
+    add_launches(total, n.n)
+    p = present.cpu().numpy()
+    cos = min_cos(per_view[present], packed[present])
+    zeros = bool((per_view[~present] == 0).all())
+    print(f"per-view prompts (8 views at 480x640, {int(p.sum())} present "
+          f"pairs of {int(p.any(0).sum())} objects): {n.wall:.3f} s, "
+          f"launches {n.n}; present rows vs the packed route min cosine "
+          f"{cos:.6f}, absent rows zero: {zeros}", flush=True)
+    expect(n.n, "per-view prompts", K3=24, K6=3, K7=47)
+    check(torch.equal(present, present_v) and zeros and cos >= TEACHER_COS,
+          f"per-view prompts: cosine {cos}, zeros {zeros}")
+    report["per_view_prompts"] = dict(wall_s=n.wall, launches=n.n,
+                                      min_cos=cos, pairs=int(p.sum()))
+
+
+TEACHER_ROW_KEYS = ("b", "t", "h", "dtype", "max_abs_err", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "tflops")
+
+
+def teacher_attention_phase(report):
+    """K5 at the teachers' new shapes against its plain version (float32
+    DINO v1 S/8 at stride 4 on 224x224 and 512x512; bf16 DINOv2-L at
+    672x896) and K4 at DINOv2-L on 518x518, each with the dropped-key
+    control, timed with the plain version, SDPA and the bound."""
+    cases = [("K5 DINO v1 224 f32", 1, 3026, 6, False, torch.float32),
+             ("K5 DINO v1 512 f32", 1, 16130, 6, False, torch.float32),
+             ("K5 DINOv2 672x896", 8, 3073, 16, False, torch.bfloat16),
+             ("K4 DINOv2 518", 8, 1370, 16, False, torch.bfloat16)]
+    rows = {c[0]: attention_row(*c, f32_control=True) for c in cases}
+    report["teacher_attention"] = rows
+    return rows
+
+
+def ln_fault(x, scale, bias, eps, kind):
+    """A planted LayerNorm fault on float32 rows: "pad", the statistics
+    taken over the Triton block's next power of two of lanes with the
+    masked lanes read as zeros; "row", each row normalised with its
+    neighbour's statistics."""
+    import torch.nn.functional as F
+
+    xf = x.float()
+    if kind == "pad":
+        src = F.pad(xf, (0, triton_block(xf.shape[-1]) - xf.shape[-1]))
+    else:
+        src = xf.roll(1, 0)
+    mean = src.mean(-1, keepdim=True)
+    var = ((src - mean) ** 2).mean(-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def triton_block(c):
+    return 1 << (c - 1).bit_length()
+
+
+def teacher_norm_phase(report):
+    """K6 and K7 at the rows, widths, types and eps (1e-6) the teachers
+    give them: DINO v1 S/8's float32 (T, 384) norms at 224x224 and
+    512x512 (the 512-lane Triton instance), DINOv2-L's first norm (bf16)
+    and final norm (float32) and its K7 residual stream (bf16) over
+    8 x 3073 rows at 672x896. Each against its plain version on the same
+    card tensors with a planted fault that the rule must see (statistics
+    over the padded block at width 384, a neighbour row's statistics at
+    1024), timed with the plain version, ``F.layer_norm`` and the bound."""
+    import torch.nn.functional as F
+
+    from dropclip_tpu_torch.ops.layernorm import (
+        add_layer_norm, add_layer_norm_plain, layer_norm, layer_norm_plain)
+
+    eps = 1e-6
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    cases = (("K6 DINO v1 224 f32", 3026, 384, torch.float32),
+             ("K6 DINO v1 512 f32", 16130, 384, torch.float32),
+             ("K6 DINOv2 672x896 bf16", 8 * 3073, 1024, torch.bfloat16),
+             ("K6 DINOv2 672x896 f32", 8 * 3073, 1024, torch.float32),
+             ("K7 DINOv2 672x896 bf16", 8 * 3073, 1024, torch.bfloat16))
+    rows = {}
+    for tag, n, c, dtype in cases:
+        x = (torch.randn((n, c), generator=gen, device="cuda") * 3
+             ).to(dtype)
+        s = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        sd, bd = s.to(dtype), b.to(dtype)
+        es = x.element_size()
+        if tag.startswith("K7"):
+            d = torch.randn((n, c), generator=gen, device="cuda").to(dtype)
+            got_s, got = add_layer_norm(x, d, s, b, eps=eps)
+            ref_s, ref = add_layer_norm_plain(x, d, s, b, eps=eps)
+            ok = torch.equal(got_s, ref_s)
+            fault = ln_fault(ref_s, s, b, eps, "row").to(dtype)
+            kernel = lambda: add_layer_norm(x, d, s, b, eps=eps)
+            plain = lambda: add_layer_norm_plain(x, d, s, b, eps=eps)
+
+            def library():
+                y = x + d
+                return y, F.layer_norm(y, (c,), sd, bd, eps)
+
+            nbytes, flops = 4.0 * n * c * es + 2 * c * 4, 10.0 * n * c
+        else:
+            got = layer_norm(x, s, b, eps=eps)
+            ref = layer_norm_plain(x, s, b, eps=eps)
+            ok = True
+            fault = ln_fault(x, s, b, eps, "pad" if c != triton_block(c)
+                             else "row").to(dtype)
+            kernel = lambda: layer_norm(x, s, b, eps=eps)
+            plain = lambda: layer_norm_plain(x, s, b, eps=eps)
+            library = lambda: F.layer_norm(x, (c,), sd, bd, eps)
+            nbytes, flops = 2.0 * n * c * es + 2 * c * 4, 9.0 * n * c
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        fault_err = float((fault.float() - ref.float()).abs().max())
+        ok = ok and ln_close(got, ref, dtype)
+        seen = not ln_close(fault, ref, dtype)
+        del got, ref, fault
+        row = dict(rows=n, c=c, dtype=str(dtype), eps=eps, max_abs_err=err,
+                   planted_fault_err=fault_err, ms=cuda_ms(kernel, 20),
+                   plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(library, 20),
+                   bound_ms=max(flops / PEAK_FLOPS[dtype],
+                                nbytes / PEAK_BYTES) * 1e3, bound_by="bytes")
+        rows[tag] = row
+        print(f"{tag} ({n}, {c}) eps {eps}: err {err:.3e}, planted fault "
+              f"{fault_err:.3e} | kernel {row['ms']:.5f} ms plain "
+              f"{row['plain_ms']:.5f} ms library {row['library_ms']:.5f} ms "
+              f"bound {row['bound_ms']:.5f} ms", flush=True)
+        check(ok, f"{tag} ({n}, {c}): max err {err}")
+        check(seen, f"{tag}: the rule does not see the planted fault")
+        del x
+    report["teacher_norms"] = rows
+    return rows
+
+
+def teachers_phase(report):
+    """DINOv2, DINO v1, the RN towers, the extraction CLIs and the
+    per-view prompt path at full width; the files go under build/teachers/
+    and are deleted afterwards. Returns the K3-K7 launches of the teacher
+    paths and the attention rows."""
+    import shutil
+
+    t = time.time()
+    os.makedirs(TEACHER_DIR, exist_ok=True)
+    total = {}
+    frames = make_ingest_scene(SEED + 5, 8, (480, 640), 10, 400)["images"]
+    try:
+        rows = teacher_attention_phase(report)
+        rows.update(teacher_norm_phase(report))
+        dinov2_phase(frames, total, report)
+        torch.cuda.empty_cache()
+        dino_v1_phase(frames, total, report)
+        torch.cuda.empty_cache()
+        rn_path = rn_phase(total, report)
+        clip_extract_phase(frames, rn_path, total, report)
+        torch.cuda.empty_cache()
+        per_view_phase(total, report)
+    finally:
+        shutil.rmtree(TEACHER_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report["teachers_s"] = time.time() - t
+    report["teacher_launches"] = total
+    print(f"teachers phase: {report['teachers_s']:.1f} s, launches {total}",
+          flush=True)
+    return total, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script measures the "
@@ -2896,6 +3635,7 @@ def main():
     run_eval_cpu_phase(report)
     k1_train_n, k1_train, cli = train_phase(report)
     k1_eval_n, k6_eval_n = eval_phase(cfg, cli, report)
+    tn, trows = teachers_phase(report)
 
     kernels = [
         dict(name="K1 brick_conv3", route="cuda",
@@ -2911,27 +3651,43 @@ def main():
         dict(name="K3 oneshot_attention_packed", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:180",
-             launches=n_ing["K3"] + n_re["K3"], ingest_launches=n_ing["K3"],
-             run_eval_launches=n_re["K3"], **att["K3"]),
+             launches=n_ing["K3"] + n_re["K3"] + tn["K3"],
+             ingest_launches=n_ing["K3"], run_eval_launches=n_re["K3"],
+             teacher_launches=tn["K3"], **att["K3"]),
         dict(name="K4 oneshot_attention", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:93",
-             launches=k4_n, **att["K4"]),
+             launches=k4_n + tn["K4"], teacher_launches=tn["K4"],
+             **att["K4"], teacher_rows={
+                 tag: {k: row[k] for k in TEACHER_ROW_KEYS}
+                 for tag, row in trows.items() if tag.startswith("K4")}),
         dict(name="K5 flash_attention_padded", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:214",
-             launches=k5_n, **att["K5"]),
+             launches=k5_n + tn["K5"], teacher_launches=tn["K5"],
+             **att["K5"], teacher_rows={
+                 tag: {k: row[k] for k in TEACHER_ROW_KEYS}
+                 for tag, row in trows.items() if tag.startswith("K5")}),
         dict(name="K6 layer_norm", route="triton",
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:153",
-             launches=k6_n + k6_np + n_ing["K6"] + n_re["K6"] + k6_eval_n,
-             run_eval_launches=n_re["K6"], eval_launches=k6_eval_n, **k6),
+             launches=(k6_n + k6_np + n_ing["K6"] + n_re["K6"] + k6_eval_n
+                       + tn["K6"]),
+             run_eval_launches=n_re["K6"], eval_launches=k6_eval_n,
+             teacher_launches=tn["K6"], **k6, teacher_rows={
+                 tag: row for tag, row in trows.items()
+                 if tag.startswith("K6")}),
         dict(name="K7 add_layer_norm", route="triton",
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:125",
-             launches=n_ing["K7"] + n_re["K7"], ingest_launches=n_ing["K7"],
-             run_eval_launches=n_re["K7"], **k7),
+             launches=n_ing["K7"] + n_re["K7"] + tn["K7"],
+             ingest_launches=n_ing["K7"], run_eval_launches=n_re["K7"],
+             teacher_launches=tn["K7"], **k7, teacher_rows={
+                 tag: row for tag, row in trows.items()
+                 if tag.startswith("K7")}),
     ]
+    check(all(kernels[i]["teacher_launches"] > 0 for i in range(2, 7)),
+          "a kernel of the teacher paths never launched")
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths never launched")
     report["kernels"] = kernels

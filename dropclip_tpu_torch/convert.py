@@ -17,10 +17,17 @@ yields the same tree); nothing here imports jax.
   ``nn.Dense`` kernels are (in, out) and transpose to ``Linear.weight``,
   ``block_i`` becomes ``blocks.i``, the embedding table, positional
   embedding and text projection carry over as they are.
-- Whole CLIP (``CLIP``): ``visual`` maps like the text tower, and the
-  (p, p, 3, width) HWIO patch-conv kernel becomes the (width, p*p*3)
-  weight of the linear layer over (kh, kw, c)-ordered patches;
+- Whole CLIP (``CLIP``): a ViT ``visual`` maps like the text tower, and
+  the (p, p, 3, width) HWIO patch-conv kernel becomes the (width, p*p*3)
+  weight of the linear layer over (kh, kw, c)-ordered patches; an RN
+  ``visual`` (``attnpool`` in the tree) keeps its flax names, its HWIO
+  conv kernels become ``Conv2d`` weights (out, in, kh, kw) and its
+  ``FrozenBatchNorm`` ``scale``/``bias``/``mean``/``var`` carry over;
   ``logit_scale`` carries over.
+- DINOv2 (``teachers.dinov2.DinoV2ViT``) and DINO v1
+  (``teachers.dino_v1.DinoV1ViT``): ``block_i`` becomes ``blocks.i``,
+  dense kernels transpose, the HWIO patch-embed kernel becomes the
+  ``Conv2d`` weight; LayerScale, tokens and embeddings carry over.
 """
 
 from __future__ import annotations
@@ -84,7 +91,11 @@ def clip_vision_state_dict(visual_params: Mapping[str, Any]
     return _tower_state_dict(visual_params)
 
 
-def _tower_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def _tower_state_dict(params: Mapping[str, Any], conv2d: bool = False
+                      ) -> Dict[str, torch.Tensor]:
+    """A flax tower tree -> its port's state dict. HWIO conv kernels
+    become ``Conv2d`` weights with ``conv2d``, else the weight of a linear
+    layer over (kh, kw, c)-ordered patches."""
     sd = {}
     for key, val in _flatten(params).items():
         parts = key.split(".")
@@ -92,7 +103,9 @@ def _tower_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             parts = ["blocks", parts[0][len("block_"):]] + parts[1:]
         leaf = parts[-1]
         t = _tensor(val)
-        if leaf == "kernel" and t.dim() == 4:  # patch conv, HWIO
+        if leaf == "kernel" and t.dim() == 4 and conv2d:
+            parts[-1], t = "weight", t.permute(3, 2, 0, 1).contiguous()
+        elif leaf == "kernel" and t.dim() == 4:  # patch conv, HWIO
             parts[-1], t = "weight", t.reshape(-1, t.shape[-1]).T.contiguous()
         elif leaf == "kernel":  # nn.Dense (in, out) -> Linear.weight
             parts[-1], t = "weight", t.T.contiguous()
@@ -104,10 +117,23 @@ def _tower_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def clip_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ``CLIP`` params (the whole ``params`` tree: ``visual``,
-    ``text``, ``logit_scale``) -> ``CLIP.state_dict()`` (ViT towers)."""
-    sd = {f"visual.{k}": v for k, v in
-          clip_vision_state_dict(params["visual"]).items()}
+    ``text``, ``logit_scale``) -> ``CLIP.state_dict()``, ViT or RN."""
+    visual = params["visual"]
+    sd = {f"visual.{k}": v for k, v in _tower_state_dict(
+        visual, conv2d="attnpool" in visual).items()}
     sd.update({f"text.{k}": v for k, v in
                clip_text_state_dict(params["text"]).items()})
     sd["logit_scale"] = _tensor(params["logit_scale"]).reshape(())
     return sd
+
+
+def dinov2_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``DinoV2ViT`` params -> ``teachers.dinov2.DinoV2ViT``'s state
+    dict."""
+    return _tower_state_dict(params, conv2d=True)
+
+
+def dino_v1_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``DinoV1ViT`` params -> ``teachers.dino_v1.DinoV1ViT``'s
+    state dict."""
+    return _tower_state_dict(params, conv2d=True)

@@ -29,7 +29,7 @@ def _require_bricks(cfg) -> None:
     if backend != "bricks":
         raise NotImplementedError(
             f"sparse_backend {backend!r} is not ported yet: the gather "
-            "engine comes with slice 3 (ROADMAP queue 1 item 22)")
+            "engine comes with slice 3 (ROADMAP queue 1 item 7.2)")
 
 
 def build_topology(cfg, coords: torch.Tensor, mask: torch.Tensor

@@ -14,6 +14,8 @@ the memory layout of a packed (B, T, H*D) one:
 
 Each is a wrapper: CUDA tensors launch the kernel (or raise), CPU tensors
 take the plain version, and ``<entry>.launches`` counts kernel launches.
+``attend`` picks among them for a model's packed projections, as the JAX
+teachers do (CLIP's vision tower, DINOv2, DINO v1).
 ``supports`` and ``supports_packed`` are the JAX package's predicates,
 kept so that a shape takes the same route as there. Their budgets are
 the TPU's VMEM limits and bind nothing on the card, whose kernel takes any
@@ -30,6 +32,8 @@ masked softmax, normalised probabilities rounded to the input dtype.
 from __future__ import annotations
 
 import torch
+
+from ..core.device import env_flag
 
 LOG2E = 1.4426950408889634
 _VMEM_BUDGET = 25 * 1024 * 1024
@@ -132,6 +136,26 @@ def flash_attention_padded(q: torch.Tensor, k: torch.Tensor,
     out = _launch(q, k, v, q.shape[2], causal)
     flash_attention_padded.launches += 1
     return out
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+           causal: bool = False) -> torch.Tensor:
+    """Contiguous packed (B, T, H*D) q/k/v -> (B, T, H*D), routed as the
+    JAX teachers route it: K3 where ``supports_packed`` holds (unless
+    ``DROPCLIP_PACKED_ATTN`` is 0), else K4 where ``supports`` holds,
+    else K5."""
+    b, t, c = q.shape
+    hd = c // heads
+    size = q.element_size()
+    if (supports_packed(t, heads, hd, causal, itemsize=size)
+            and env_flag("DROPCLIP_PACKED_ATTN", default=True)):
+        return oneshot_attention_packed(q, k, v, heads)
+    q, k, v = (x.reshape(b, t, heads, hd) for x in (q, k, v))
+    if supports(t, hd, causal, itemsize=size):
+        out = oneshot_attention(q, k, v)
+    else:
+        out = flash_attention_padded(q, k, v, causal)
+    return out.reshape(b, t, c)
 
 
 oneshot_attention_packed.launches = 0

@@ -93,7 +93,7 @@ class GroundingPipeline:
         if self.engine not in ("bricks", "pillars"):
             raise NotImplementedError(
                 f"engine {self.engine!r} is not ported yet: the gather "
-                "engine comes with slice 3 (ROADMAP queue 1 item 22)")
+                "engine comes with slice 3 (ROADMAP queue 1 item 7.2)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.capacity = int(cfg.voxel_capacity or 8192)

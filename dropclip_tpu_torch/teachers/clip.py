@@ -1,14 +1,16 @@
-"""CLIP in PyTorch: the ViT vision tower, the causal text tower and the
-``CLIP`` wrapper.
+"""CLIP in PyTorch: the ViT and ModifiedResNet (RN) vision towers, the
+causal text tower and the ``CLIP`` wrapper.
 
 Port of ``dropclip_tpu/teachers/clip.py`` (reference
-models/features/clip/model.py:180-292, 413-443); the ModifiedResNet (RN)
-towers wait. Compute dtype follows the JAX policy: linear layers,
-embeddings and the residual stream in ``dtype`` (bf16 on the serve and
-ingest paths), LayerNorm in float32 through ``ops.layernorm`` (K6, and K7
-for the fused residual add, on the card), softmax in float32.
+models/features/clip/model.py:12-292, 413-443): a tuple ``vision_layers``
+selects the RN tower, an int the ViT, as ``build_model`` does. Compute
+dtype follows the JAX policy: linear layers, convs, embeddings and the
+residual stream in ``dtype`` (bf16 on the serve and ingest paths),
+LayerNorm and the RN's frozen BatchNorm in float32 (LayerNorm through
+``ops.layernorm``: K6, and K7 for the fused residual add, on the card),
+softmax in float32.
 
-Vision attention goes through ``ops.attention``: K3 on the packed
+ViT attention goes through ``ops.attention.attend``: K3 on the packed
 projections where the JAX package's ``supports_packed`` holds (and
 ``DROPCLIP_PACKED_ATTN`` is not 0), else K4 where ``supports`` holds, else
 K5, as ``clip.py:110-138`` routes them; on CPU tensors each entry point
@@ -17,21 +19,23 @@ tower always runs the fused residual stream (``fused_call``, one K7 pass
 per add + LayerNorm), which is bit-identical to the unfused form that the
 JAX package runs unless ``DROPCLIP_FUSED_ADD_LN`` is set.
 
-Text attention is plain matmul + masked softmax, matching
-``jax.nn.dot_product_attention(is_causal=True)``: logits accumulate in
-float32, softmax in float32, probabilities cast to the value dtype. The
-JAX text blocks never take a Pallas kernel, so it stays plain torch.
+Text attention and the RN's attention pool are plain matmul + softmax
+(``dot_product_attention``), matching ``jax.nn.dot_product_attention``:
+logits accumulate in float32, softmax in float32, probabilities cast to
+the value dtype. Neither takes a Pallas kernel in the JAX package, and the
+RN's convs and pools are XLA ops there; here they are ``F.conv2d`` and
+``F.avg_pool2d``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.device import env_flag, resolve_device
+from ..core.device import resolve_device
 from ..ops import attention as attn_ops
 from ..ops.layernorm import add_layer_norm, layer_norm
 from ..ops.resize import bicubic_resize
@@ -61,10 +65,23 @@ class LayerNormF32(nn.Module):
         return layer_norm(x, self.scale, self.bias, eps=self.eps)
 
 
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False) -> torch.Tensor:
+    """Plain softmax attention on (B, H, T, D) (``jax.nn.dot_product_
+    attention``'s arithmetic): float32 logits and softmax, probabilities
+    rounded to the value dtype."""
+    logits = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if causal:
+        t, s = logits.shape[-2:]
+        keep = torch.ones(t, s, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
+    return torch.softmax(logits, dim=-1).to(v.dtype) @ v
+
+
 class MultiHeadAttention(nn.Module):
     """MHA with separate q/k/v/out projections. ``use_kernels`` routes
-    through the attention entry points (the vision tower); otherwise plain
-    masked softmax (the text tower)."""
+    through ``ops.attention.attend`` (the vision tower); otherwise plain
+    attention (the text tower)."""
 
     def __init__(self, width: int, heads: int, use_kernels: bool = False):
         super().__init__()
@@ -75,37 +92,17 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = nn.Linear(width, width)
         self.out_proj = nn.Linear(width, width)
 
-    def _kernel_attention(self, qp, kp, vp, causal: bool) -> torch.Tensor:
-        b, t, d = qp.shape
-        hd = d // self.heads
-        size = qp.element_size()
-        if (attn_ops.supports_packed(t, self.heads, hd, causal,
-                                     itemsize=size)
-                and env_flag("DROPCLIP_PACKED_ATTN", default=True)):
-            return attn_ops.oneshot_attention_packed(qp, kp, vp, self.heads)
-        q, k, v = (p.reshape(b, t, self.heads, hd) for p in (qp, kp, vp))
-        if attn_ops.supports(t, hd, causal, itemsize=size):
-            out = attn_ops.oneshot_attention(q, k, v)
-        else:
-            out = attn_ops.flash_attention_padded(q, k, v, causal)
-        return out.reshape(b, t, d)
-
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         if self.use_kernels:
-            return self.out_proj(self._kernel_attention(
-                self.q_proj(x), self.k_proj(x), self.v_proj(x), causal))
+            return self.out_proj(attn_ops.attend(
+                self.q_proj(x), self.k_proj(x), self.v_proj(x), self.heads,
+                causal))
         b, t, d = x.shape
-        hd = d // self.heads
-        split = lambda p: p.reshape(b, t, self.heads, hd).transpose(1, 2)
-        q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), \
-            split(self.v_proj(x))
-        logits = (q.float() @ k.float().transpose(-1, -2)) * hd ** -0.5
-        if causal:
-            keep = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-            logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        out = (probs @ v).transpose(1, 2).reshape(b, t, d)
-        return self.out_proj(out)
+        split = lambda p: p.reshape(b, t, self.heads, -1).transpose(1, 2)
+        out = dot_product_attention(split(self.q_proj(x)),
+                                    split(self.k_proj(x)),
+                                    split(self.v_proj(x)), causal)
+        return self.out_proj(out.transpose(1, 2).reshape(b, t, d))
 
     def value_path(self, x: torch.Tensor) -> torch.Tensor:
         """out_proj(V-projection(x)) — the MaskCLIP trick."""
@@ -144,23 +141,29 @@ class ResidualAttentionBlock(nn.Module):
 
 def _init_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
     """Flax initializers' scales, drawn on the CPU in module order:
-    lecun-normal dense kernels, zero biases, unit LayerNorms."""
+    lecun-normal dense and conv kernels, zero biases, unit LayerNorms and
+    identity frozen BatchNorms."""
     for mod in module.modules():
-        if isinstance(mod, nn.Linear):
-            mod.weight.copy_(mod.in_features ** -0.5 * torch.randn(
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            fan_in = mod.weight[0].numel()
+            mod.weight.copy_(fan_in ** -0.5 * torch.randn(
                 mod.weight.shape, generator=generator))
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, LayerNormF32):
             mod.scale.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, FrozenBatchNorm):
+            for p, val in ((mod.scale, 1.0), (mod.bias, 0.0),
+                           (mod.mean, 0.0), (mod.var, 1.0)):
+                p.fill_(val)
 
 
 def _cast_linears_(module: nn.Module, dtype: torch.dtype) -> None:
-    """Store linear layers in the compute dtype (the JAX towers cast their
-    float32 kernels to it on every call; same values)."""
+    """Store linear layers and convs in the compute dtype (the JAX towers
+    cast their float32 kernels to it on every call; same values)."""
     for mod in module.modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
             mod.to(dtype)
 
 
@@ -253,6 +256,173 @@ class CLIPVisionTransformer(nn.Module):
         return x @ self.proj.to(x.dtype)
 
 
+class FrozenBatchNorm(nn.Module):
+    """Inference-mode BatchNorm over dim 1 of NCHW with its running
+    statistics as parameters (flax names ``scale``, ``bias``, ``mean``,
+    ``var``); computed in float32, cast back to the input dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.mean = nn.Parameter(torch.zeros(channels))
+        self.var = nn.Parameter(torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        col = lambda p: p[:, None, None]
+        y = (x.float() - col(self.mean)) * torch.rsqrt(col(self.var)
+                                                       + self.eps)
+        return (y * col(self.scale) + col(self.bias)).to(x.dtype)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+
+
+class BottleneckRN(nn.Module):
+    """CLIP's anti-aliased ResNet bottleneck on NCHW: every conv at stride
+    1, an average pool after conv2 when ``stride`` > 1, and the downsample
+    branch led by the same pool."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.conv1, self.bn1 = _conv(inplanes, planes, 1), \
+            FrozenBatchNorm(planes)
+        self.conv2, self.bn2 = _conv(planes, planes, 3), \
+            FrozenBatchNorm(planes)
+        self.conv3, self.bn3 = _conv(planes, planes * 4, 1), \
+            FrozenBatchNorm(planes * 4)
+        self.downsample = stride > 1 or inplanes != planes * 4
+        if self.downsample:
+            self.downsample_conv = _conv(inplanes, planes * 4, 1)
+            self.downsample_bn = FrozenBatchNorm(planes * 4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        if self.stride > 1:
+            y = F.avg_pool2d(y, self.stride)
+        y = self.bn3(self.conv3(y))
+        idn = x
+        if self.downsample:
+            if self.stride > 1:
+                idn = F.avg_pool2d(idn, self.stride)
+            idn = self.downsample_bn(self.downsample_conv(idn))
+        return F.relu(y + idn)
+
+
+class AttentionPool2d(nn.Module):
+    """QKV attention pool whose query is the mean token, and the MaskCLIP
+    value path ``forward_v`` for per-patch features. Inputs are NCHW."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int, heads: int,
+                 output_dim: int):
+        super().__init__()
+        self.spacial_dim, self.embed_dim, self.heads = \
+            spacial_dim, embed_dim, heads
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(spacial_dim ** 2 + 1, embed_dim))
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.k_proj = nn.Linear(embed_dim, embed_dim)
+        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.c_proj = nn.Linear(embed_dim, output_dim)
+
+    @staticmethod
+    def _tokens(x: torch.Tensor) -> torch.Tensor:
+        """(B, C, h, w) -> (B, 1 + h*w, C): the mean token, then the grid
+        row-major."""
+        t = x.flatten(2).transpose(1, 2)
+        return torch.cat([t.mean(dim=1, keepdim=True), t], dim=1)
+
+    def _pos_embed(self, gh: int, gw: int) -> torch.Tensor:
+        """Bicubic pos-embed resampling with the DINO +0.1 trick, in the
+        true (h, w) orientation as the JAX package does."""
+        og, pe = self.spacial_dim, self.positional_embedding
+        if gh == og and gw == og:
+            return pe
+        resized = bicubic_resize(
+            pe[1:].reshape(og, og, self.embed_dim), (gh, gw),
+            scale_hw=((gh + 0.1) / og, (gw + 0.1) / og))
+        return torch.cat([pe[:1], resized.reshape(-1, self.embed_dim)], 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, h, w) -> (B, output_dim). The embedding is added as it
+        is, so the cls path takes only the training grid."""
+        b, _, h, w = x.shape
+        if h * w != self.spacial_dim ** 2:
+            raise ValueError(
+                f"AttentionPool2d cls path needs the {self.spacial_dim}^2 "
+                f"training grid, got {h}x{w} (reference model.py:75 "
+                "shape-errors identically); use patch_output for other sizes")
+        t = self._tokens(x) + self.positional_embedding.to(x.dtype)
+        split = lambda p: p.reshape(b, p.shape[1], self.heads, -1
+                                    ).transpose(1, 2)
+        out = dot_product_attention(split(self.q_proj(t[:, :1])),
+                                    split(self.k_proj(t)),
+                                    split(self.v_proj(t)))
+        return self.c_proj(out.transpose(1, 2).reshape(b, 1, -1))[:, 0]
+
+    def forward_v(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, h, w) -> (B, h*w + 1, output_dim): c_proj(v_proj(tokens))
+        with the interpolated positional embedding."""
+        t = self._tokens(x)
+        t = t + self._pos_embed(x.shape[2], x.shape[3]).to(t.dtype)
+        return self.c_proj(self.v_proj(t))
+
+
+class ModifiedResNet(nn.Module):
+    """CLIP's RN tower: pixels NHWC (B, H, W, 3) -> (B, output_dim) pooled
+    features, or the MaskCLIP value-path features (B, h*w, output_dim)
+    with ``patch_output``. Stage blocks keep the flax names
+    ``layer{stage}_{index}``."""
+
+    def __init__(self, layers: Sequence[int], output_dim: int, heads: int,
+                 input_resolution: int, width: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1, self.bn1 = _conv(3, width // 2, 3, 2), \
+            FrozenBatchNorm(width // 2)
+        self.conv2, self.bn2 = _conv(width // 2, width // 2, 3), \
+            FrozenBatchNorm(width // 2)
+        self.conv3, self.bn3 = _conv(width // 2, width, 3), \
+            FrozenBatchNorm(width)
+        self.stage_names = []
+        inplanes = width
+        for j, n in enumerate(layers):
+            planes = width * 2 ** j
+            for i in range(n):
+                name = f"layer{j + 1}_{i}"
+                self.add_module(name, BottleneckRN(
+                    inplanes, planes, 2 if (i == 0 and j > 0) else 1))
+                self.stage_names.append(name)
+                inplanes = planes * 4
+        self.attnpool = AttentionPool2d(input_resolution // 32, width * 32,
+                                        heads, output_dim)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            _init_(self, generator)
+            pe = self.attnpool.positional_embedding
+            pe.copy_(self.attnpool.embed_dim ** -0.5 * torch.randn(
+                pe.shape, generator=generator))
+
+    def forward(self, pixels: torch.Tensor,
+                patch_output: bool = False) -> torch.Tensor:
+        x = pixels.to(self.dtype).permute(0, 3, 1, 2)
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2),
+                         (self.conv3, self.bn3)):
+            x = F.relu(bn(conv(x)))
+        x = F.avg_pool2d(x, 2)
+        for name in self.stage_names:
+            x = getattr(self, name)(x)
+        if patch_output:  # c_proj already maps to output_dim: no proj
+            return self.attnpool.forward_v(x)[:, 1:, :]
+        return self.attnpool(x)
+
+
 class CLIPTextTransformer(nn.Module):
     """Causal text tower: tokens (B, T) int -> (B, embed_dim), pooled at
     the EOT token (the argmax token id)."""
@@ -302,9 +472,11 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIP(nn.Module):
-    """Full CLIP with the ViT vision tower: ``encode_image`` (class-token
-    features), ``get_patch_encodings`` (MaskCLIP patch features),
-    ``encode_text``. Fields are those of ``CLIP_CONFIGS``."""
+    """Full CLIP: ``encode_image`` (class-token or pooled features),
+    ``get_patch_encodings`` (MaskCLIP patch features), ``encode_text``.
+    Fields are those of ``CLIP_CONFIGS``: an int ``vision_layers`` builds
+    the ViT tower, a tuple of four stage depths the RN tower (whose
+    ``vision_patch_size`` is its output stride, 32)."""
 
     def __init__(self, embed_dim: int, image_resolution: int,
                  vision_layers, vision_width: int, vision_patch_size: int,
@@ -313,19 +485,23 @@ class CLIP(nn.Module):
                  transformer_layers: int, vision_heads: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if isinstance(vision_layers, (tuple, list)):
-            raise NotImplementedError(
-                "the ModifiedResNet (RN) vision towers are not ported yet")
         self.embed_dim = embed_dim
         self.image_resolution = image_resolution
         self.vision_patch_size = vision_patch_size
         self.context_length = context_length
         self.dtype = dtype
-        self.visual = CLIPVisionTransformer(
-            width=vision_width, layers=vision_layers,
-            heads=vision_heads or vision_width // 64,
-            patch_size=vision_patch_size, embed_dim=embed_dim,
-            image_resolution=image_resolution, dtype=dtype)
+        if isinstance(vision_layers, (tuple, list)):
+            self.visual = ModifiedResNet(
+                layers=tuple(vision_layers), output_dim=embed_dim,
+                heads=vision_heads or vision_width * 32 // 64,
+                input_resolution=image_resolution, width=vision_width,
+                dtype=dtype)
+        else:
+            self.visual = CLIPVisionTransformer(
+                width=vision_width, layers=vision_layers,
+                heads=vision_heads or vision_width // 64,
+                patch_size=vision_patch_size, embed_dim=embed_dim,
+                image_resolution=image_resolution, dtype=dtype)
         self.text = CLIPTextTransformer(
             width=transformer_width, layers=transformer_layers,
             heads=transformer_heads, vocab_size=vocab_size,
@@ -354,8 +530,8 @@ class CLIP(nn.Module):
 
 
 # Canonical CLIP configs (reference clip.py:_MODELS; the ingest teacher is
-# ViT-L/14@336px). The RN entries keep their vision fields for the day
-# their tower is ported; vision_patch_size is their output stride.
+# ViT-L/14@336px). For the RN entries vision_patch_size is the output
+# stride.
 CLIP_CONFIGS = {
     "ViT-B/32": dict(embed_dim=512, image_resolution=224, vision_layers=12,
                      vision_width=768, vision_patch_size=32,

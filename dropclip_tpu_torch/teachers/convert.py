@@ -13,8 +13,13 @@ Both map straight to ``CLIP.state_dict()``'s keys (those
 ``convert.clip_state_dict`` gives for a flax tree) in float32: torch
 ``Linear`` weights stay (out, in), LayerNorm ``weight`` becomes ``scale``,
 the (width, 3, p, p) patch conv becomes the (width, p*p*3) weight of the
-linear layer over (kh, kw, c)-ordered patches. The ModifiedResNet (RN)
-towers raise: the port's ``CLIP`` has no RN tower yet.
+linear layer over (kh, kw, c)-ordered patches. OpenAI files of the
+ModifiedResNet (RN) towers (``visual.attnpool.*``; there is no HF RN
+layout) map onto the port's RN tower: convs keep their (out, in, kh, kw)
+weights, ``layer{j}.{i}`` becomes ``layer{j}_{i}``, ``downsample.0`` and
+``.1`` become ``downsample_conv`` and ``downsample_bn``, and each BatchNorm's
+``weight``, ``bias``, ``running_mean`` and ``running_var`` become the
+``FrozenBatchNorm``'s ``scale``, ``bias``, ``mean`` and ``var``.
 """
 
 from __future__ import annotations
@@ -22,10 +27,6 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional
 
 import torch
-
-_RN_TODO = ("the ModifiedResNet (RN) CLIP towers are not ported yet: they "
-            "wait for their ROADMAP queue 1 item 6 entry, the ModifiedResNet "
-            "(RN) towers")
 
 
 def _t(x) -> torch.Tensor:
@@ -65,19 +66,40 @@ def _patch_weight(w) -> torch.Tensor:
     return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous()
 
 
+def _rn_bn(sd, src: str, dst: str, out) -> None:
+    for theirs, port in (("weight", "scale"), ("bias", "bias"),
+                         ("running_mean", "mean"), ("running_var", "var")):
+        out[f"{dst}.{port}"] = _t(sd[f"{src}.{theirs}"])
+
+
+def _rn_visual(sd: Mapping[str, Any], out) -> None:
+    """The OpenAI ModifiedResNet entries -> the port's ``visual.*``."""
+    for i in (1, 2, 3):
+        out[f"visual.conv{i}.weight"] = _t(sd[f"visual.conv{i}.weight"])
+        _rn_bn(sd, f"visual.bn{i}", f"visual.bn{i}", out)
+    for j in range(1, 5):
+        i = 0
+        while f"visual.layer{j}.{i}.conv1.weight" in sd:
+            src, dst = f"visual.layer{j}.{i}", f"visual.layer{j}_{i}"
+            for n in (1, 2, 3):
+                out[f"{dst}.conv{n}.weight"] = _t(sd[f"{src}.conv{n}.weight"])
+                _rn_bn(sd, f"{src}.bn{n}", f"{dst}.bn{n}", out)
+            if f"{src}.downsample.0.weight" in sd:
+                out[f"{dst}.downsample_conv.weight"] = _t(
+                    sd[f"{src}.downsample.0.weight"])
+                _rn_bn(sd, f"{src}.downsample.1", f"{dst}.downsample_bn", out)
+            i += 1
+    p = "visual.attnpool"
+    out[f"{p}.positional_embedding"] = _t(sd[f"{p}.positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        out[f"{p}.{name}.weight"] = _t(sd[f"{p}.{name}.weight"])
+        out[f"{p}.{name}.bias"] = _t(sd[f"{p}.{name}.bias"])
+
+
 def from_openai_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """OpenAI CLIP state dict -> ``CLIP.state_dict()`` (ViT towers)."""
-    if "visual.attnpool.positional_embedding" in sd:
-        raise NotImplementedError(_RN_TODO)
+    """OpenAI CLIP state dict -> ``CLIP.state_dict()`` (ViT or RN tower,
+    dispatched as ``build_model`` does)."""
     out = {
-        "visual.conv1.weight": _patch_weight(sd["visual.conv1.weight"]),
-        "visual.class_embedding": _t(sd["visual.class_embedding"]),
-        "visual.positional_embedding": _t(sd["visual.positional_embedding"]),
-        "visual.ln_pre.scale": _t(sd["visual.ln_pre.weight"]),
-        "visual.ln_pre.bias": _t(sd["visual.ln_pre.bias"]),
-        "visual.ln_post.scale": _t(sd["visual.ln_post.weight"]),
-        "visual.ln_post.bias": _t(sd["visual.ln_post.bias"]),
-        "visual.proj": _t(sd["visual.proj"]),
         "text.token_embedding.weight": _t(sd["token_embedding.weight"]),
         "text.positional_embedding": _t(sd["positional_embedding"]),
         "text.ln_final.scale": _t(sd["ln_final.weight"]),
@@ -85,9 +107,23 @@ def from_openai_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         "text.text_projection": _t(sd["text_projection"]),
         "logit_scale": _t(sd["logit_scale"]).reshape(()),
     }
-    for i in range(_n_blocks(sd, "visual.transformer.resblocks.", 3)):
-        _openai_block(sd, f"visual.transformer.resblocks.{i}",
-                      f"visual.blocks.{i}", out)
+    if "visual.attnpool.positional_embedding" in sd:
+        _rn_visual(sd, out)
+    else:
+        out.update({
+            "visual.conv1.weight": _patch_weight(sd["visual.conv1.weight"]),
+            "visual.class_embedding": _t(sd["visual.class_embedding"]),
+            "visual.positional_embedding": _t(
+                sd["visual.positional_embedding"]),
+            "visual.ln_pre.scale": _t(sd["visual.ln_pre.weight"]),
+            "visual.ln_pre.bias": _t(sd["visual.ln_pre.bias"]),
+            "visual.ln_post.scale": _t(sd["visual.ln_post.weight"]),
+            "visual.ln_post.bias": _t(sd["visual.ln_post.bias"]),
+            "visual.proj": _t(sd["visual.proj"]),
+        })
+        for i in range(_n_blocks(sd, "visual.transformer.resblocks.", 3)):
+            _openai_block(sd, f"visual.transformer.resblocks.{i}",
+                          f"visual.blocks.{i}", out)
     for i in range(_n_blocks(sd, "transformer.resblocks.", 2)):
         _openai_block(sd, f"transformer.resblocks.{i}", f"text.blocks.{i}",
                       out)
@@ -171,8 +207,6 @@ def build_clip_from(name: str, checkpoint: Optional[str],
         return build_clip(name, dtype=dtype, device=device,
                           generator=torch.Generator().manual_seed(seed))
     device = resolve_device(device)
-    if isinstance(CLIP_CONFIGS[name]["vision_layers"], (tuple, list)):
-        raise NotImplementedError(_RN_TODO)
     model = CLIP(**CLIP_CONFIGS[name], dtype=dtype).cast_()
     model.load_state_dict(load_params(checkpoint))
     return model.to(device).eval()
@@ -200,18 +234,16 @@ def build_clip_text_from(name: str, checkpoint: Optional[str],
 def synthetic_openai_state_dict(name: str, seed: int = 0,
                                 dtype: torch.dtype = torch.float16
                                 ) -> Dict[str, torch.Tensor]:
-    """An OpenAI-layout state dict of the ViT config ``name`` with weights
-    drawn by numpy from ``seed`` (dense weights at std fan_in^-0.5, unit
-    LayerNorms with 10% noise), stored in ``dtype`` as the OpenAI files
-    are: a checkpoint file for tests and smoke runs that has to exist
-    without a download."""
+    """An OpenAI-layout state dict of CLIP config ``name`` (ViT or RN)
+    with weights drawn by numpy from ``seed`` (dense and conv weights at
+    std fan_in^-0.5, unit LayerNorms and BatchNorms with 10% noise), stored
+    in ``dtype`` as the OpenAI files are: a checkpoint file for tests and
+    smoke runs that has to exist without a download."""
     import numpy as np
 
     from .clip import CLIP_CONFIGS
 
     c = CLIP_CONFIGS[name]
-    if isinstance(c["vision_layers"], (tuple, list)):
-        raise NotImplementedError(_RN_TODO)
     rng = np.random.default_rng(seed)
 
     def draw(*shape, std=1.0, mean=0.0):
@@ -235,22 +267,63 @@ def synthetic_openai_state_dict(name: str, seed: int = 0,
                 sd[f"{p}.{lin}.weight"] = draw(o, n, std=n ** -0.5)
                 sd[f"{p}.{lin}.bias"] = draw(o, std=0.02)
 
-    vw, p, grid = c["vision_width"], c["vision_patch_size"], \
-        c["image_resolution"] // c["vision_patch_size"]
-    sd["visual.conv1.weight"] = draw(vw, 3, p, p, std=(3 * p * p) ** -0.5)
-    sd["visual.class_embedding"] = draw(vw, std=vw ** -0.5)
-    sd["visual.positional_embedding"] = draw(grid * grid + 1, vw,
-                                             std=vw ** -0.5)
-    blocks("visual.transformer.resblocks", vw, c["vision_layers"])
+    def conv(key: str, cout: int, cin: int, k: int) -> None:
+        sd[f"{key}.weight"] = draw(cout, cin, k, k, std=(cin * k * k) ** -0.5)
+
+    def bn(key: str, ch: int) -> None:
+        sd[f"{key}.weight"] = draw(ch, std=0.1, mean=1.0)
+        sd[f"{key}.bias"] = draw(ch, std=0.1)
+        sd[f"{key}.running_mean"] = draw(ch, std=0.1)
+        sd[f"{key}.running_var"] = torch.from_numpy(
+            rng.uniform(0.8, 1.2, ch).astype(np.float32)).to(dtype)
+
+    vw = c["vision_width"]
+    if isinstance(c["vision_layers"], (tuple, list)):
+        for i, (cin, cout) in enumerate(((3, vw // 2), (vw // 2, vw // 2),
+                                         (vw // 2, vw)), 1):
+            conv(f"visual.conv{i}", cout, cin, 3)
+            bn(f"visual.bn{i}", cout)
+        inplanes = vw
+        for j, n in enumerate(c["vision_layers"]):
+            planes = vw * 2 ** j
+            for i in range(n):
+                p = f"visual.layer{j + 1}.{i}"
+                for k, (cin, cout, ks) in enumerate(
+                        ((inplanes, planes, 1), (planes, planes, 3),
+                         (planes, planes * 4, 1)), 1):
+                    conv(f"{p}.conv{k}", cout, cin, ks)
+                    bn(f"{p}.bn{k}", cout)
+                if i == 0 and (j > 0 or inplanes != planes * 4):
+                    conv(f"{p}.downsample.0", planes * 4, inplanes, 1)
+                    bn(f"{p}.downsample.1", planes * 4)
+                inplanes = planes * 4
+        ed, grid = vw * 32, c["image_resolution"] // 32
+        p = "visual.attnpool"
+        sd[f"{p}.positional_embedding"] = draw(grid * grid + 1, ed,
+                                               std=ed ** -0.5)
+        for lin, o in (("q_proj", ed), ("k_proj", ed), ("v_proj", ed),
+                       ("c_proj", c["embed_dim"])):
+            sd[f"{p}.{lin}.weight"] = draw(o, ed, std=ed ** -0.5)
+            sd[f"{p}.{lin}.bias"] = draw(o, std=0.02)
+    else:  # the draws in the order the ViT files were first made
+        p, grid = c["vision_patch_size"], \
+            c["image_resolution"] // c["vision_patch_size"]
+        sd["visual.conv1.weight"] = draw(vw, 3, p, p, std=(3 * p * p) ** -0.5)
+        sd["visual.class_embedding"] = draw(vw, std=vw ** -0.5)
+        sd["visual.positional_embedding"] = draw(grid * grid + 1, vw,
+                                                 std=vw ** -0.5)
+        blocks("visual.transformer.resblocks", vw, c["vision_layers"])
     tw = c["transformer_width"]
     sd["token_embedding.weight"] = draw(c["vocab_size"], tw, std=0.02)
     sd["positional_embedding"] = draw(c["context_length"], tw, std=0.01)
     blocks("transformer.resblocks", tw, c["transformer_layers"])
-    for ln, w in (("visual.ln_pre", vw), ("visual.ln_post", vw),
-                  ("ln_final", tw)):
+    vit = not isinstance(c["vision_layers"], (tuple, list))
+    lns = (("visual.ln_pre", vw), ("visual.ln_post", vw)) if vit else ()
+    for ln, w in lns + (("ln_final", tw),):
         sd[f"{ln}.weight"] = draw(w, std=0.1, mean=1.0)
         sd[f"{ln}.bias"] = draw(w, std=0.1)
-    sd["visual.proj"] = draw(vw, c["embed_dim"], std=vw ** -0.5)
+    if vit:
+        sd["visual.proj"] = draw(vw, c["embed_dim"], std=vw ** -0.5)
     sd["text_projection"] = draw(tw, c["embed_dim"], std=tw ** -0.5)
     sd["logit_scale"] = torch.tensor(4.6052, dtype=dtype)
     return sd

@@ -5,15 +5,16 @@ models/features/extractor.py:79-181, 253-480): CLIP features of whole
 images (``extract``, class token or MaskCLIP patches), of text prompts
 (``encode_text``), of per-object query sets (``encode_queries``), and of
 every present (view, object) pair with a visual prompt
-(``extract_obj_prior``, the packed present-pair path). The model is a
-``teachers.clip.CLIP`` already on its device; inputs move there.
-
-Waiting for a later slice: the per-view fallback behind
-``DROPCLIP_PACKED_PROMPTS=0`` and ``on_device`` (multi-card ingest).
+(``extract_obj_prior``: the packed present-pair path, or with
+``DROPCLIP_PACKED_PROMPTS=0`` the per-view path, which runs every view's
+objects in chunks of 8 views). The model is a ``teachers.clip.CLIP``
+already on its device; inputs move there. ``on_device`` gives a replica
+on another device (multi-card ingest).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, Sequence, Tuple
 
@@ -24,6 +25,7 @@ from .prompting import CLIP_MEAN, CLIP_STD, build_prompts, normalize
 from ..ops.resize import resize_image
 
 CHUNK = 96  # present pairs per ViT forward (the measured-good JAX batch)
+VIEW_CHUNK = 8  # views per ViT forward on the per-view path
 
 
 class ClipExtractor:
@@ -58,6 +60,14 @@ class ClipExtractor:
         if mode not in ("cls", "patch"):
             raise ValueError("Set mode to either ['cls', 'patch']")
         self.mode = mode
+
+    def on_device(self, device) -> "ClipExtractor":
+        """A copy of this extractor whose model is replicated on
+        ``device``; settings are shared."""
+        rep = copy.copy(self)
+        rep.model = copy.deepcopy(self.model).to(device)
+        rep.device = torch.device(device)
+        return rep
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
@@ -98,6 +108,22 @@ class ClipExtractor:
         self.chunks += 1
         return emb.reshape(c, l, -1).mean(dim=1)
 
+    def _obj_prior_views(self, images, segs, obj_ids) -> torch.Tensor:
+        """A chunk of views (Vc, H, W, 3) with their segs (Vc, H, W) and
+        (K,) object ids -> (Vc, K, E) prompt-averaged class-token
+        embeddings, one ViT forward over the Vc * K * L prompts."""
+        prompts = torch.stack([build_prompts(
+            image, seg[None] == obj_ids[:, None, None],
+            kinds=self.visual_prompt, crop_num_levels=self.crop_num_levels,
+            crop_expansion_ratio=self.crop_expansion_ratio,
+            blur_kernel=self.blur_kernel, out_hw=self.img_resize)
+            for image, seg in zip(images, segs)])
+        vc, k, l = prompts.shape[:3]
+        emb = self.model.encode_image(prompts.reshape(vc * k * l,
+                                                      *prompts.shape[3:]))
+        self.chunks += 1
+        return emb.reshape(vc, k, l, -1).mean(dim=2)
+
     @torch.no_grad()
     def extract_obj_prior(self, images, seg_masks, obj_ids,
                           present_hint=None
@@ -107,13 +133,12 @@ class ClipExtractor:
         images (V, H, W, 3) uint8, seg_masks (V, H, W) int instance ids,
         obj_ids (K,) ids (row k of the output is object obj_ids[k]); pass
         the host copy of the segs as ``present_hint`` to skip a fetch.
-        Returns (feats (V, K, C), present (V, K) bool): only the pairs
-        the segmentation contains reach the ViT, in chunks of ``chunk``
-        padded with view index V; absent rows are zero."""
-        if os.environ.get("DROPCLIP_PACKED_PROMPTS", "1") == "0":
-            raise NotImplementedError(
-                "the per-view prompt path (DROPCLIP_PACKED_PROMPTS=0) is "
-                "not ported yet")
+        Returns (feats (V, K, C), present (V, K) bool); absent rows are
+        zero. The packed path sends only the pairs the segmentation
+        contains to the ViT, in chunks of ``chunk`` padded with view index
+        V. The per-view path (``DROPCLIP_PACKED_PROMPTS=0``) runs chunks
+        of up to 8 views, each at the ids present anywhere in the scene,
+        and zeroes the rows absent from a view."""
         images = self._to_device(images)
         seg = self._to_device(seg_masks)
         seg_host = np.asarray(present_hint if present_hint is not None
@@ -124,6 +149,8 @@ class ClipExtractor:
         present = np.stack([
             np.isin(obj_ids, np.setdiff1d(np.unique(seg_host[i]), [0]))
             for i in range(v)])
+        if os.environ.get("DROPCLIP_PACKED_PROMPTS", "1") == "0":
+            return self._obj_prior_per_view(images, seg, obj_ids, present)
         pairs = np.argwhere(present)  # (P, 2) view-major
         n_chunks = max(-(-len(pairs) // self.chunk), 1)
         vidx = np.full((n_chunks * self.chunk,), v, np.int64)  # pad -> drop
@@ -141,6 +168,21 @@ class ClipExtractor:
         out[self._to_device(vidx[:real]), self._to_device(kidx[:real])] = \
             embs[:real]
         return out, self._to_device(present)
+
+    def _obj_prior_per_view(self, images, seg, obj_ids, present):
+        v, k = present.shape
+        used = np.flatnonzero(present.any(axis=0))
+        if not len(used):  # nothing present: one row keeps the shapes
+            used = np.zeros(1, np.int64)
+        ids = self._to_device(obj_ids[used].astype(np.int64)).to(seg.dtype)
+        packed = torch.cat([self._obj_prior_views(
+            images[i: i + VIEW_CHUNK], seg[i: i + VIEW_CHUNK], ids)
+            for i in range(0, v, VIEW_CHUNK)])
+        out = torch.zeros((v, k, packed.shape[-1]), dtype=packed.dtype,
+                          device=self.device)
+        out[:, self._to_device(used)] = packed
+        present = self._to_device(present)
+        return out * present[..., None].to(out.dtype), present
 
     @torch.no_grad()
     def _encode_tokens(self, texts: Sequence[str]) -> torch.Tensor:

@@ -1,12 +1,12 @@
 """dropclip_tpu_torch imports with none of jax, flax, the JAX package,
-regex, yaml, h5py, triton, matplotlib or PIL available (the card's
+regex, yaml, h5py, triton, matplotlib, PIL or cv2 available (the card's
 machine has only torch, triton, numpy, scipy, einops, pytest and
 hypothesis; matplotlib and PIL are imported only inside the viz functions
-that draw), and its entry points (serve pipeline on either engine and
+that draw, cv2 only inside the image readers), and its entry points (serve pipeline on either engine and
 from a checkpoint, pillar topology, text encoder, CLIP, ingest staging,
-the trainer, the eval and viz CLIs) refuse to run without a card unless
-asked for the CPU; the trainer's data path reads .npz scenes with no
-h5py."""
+the trainer, the eval and viz CLIs, the DINO teachers and the extraction
+CLIs) refuse to run without a card unless asked for the CPU; the
+trainer's data path reads .npz scenes with no h5py."""
 
 import os
 import subprocess
@@ -17,7 +17,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "dropclip_tpu",
-             "regex", "yaml", "h5py", "triton", "matplotlib", "PIL"):
+             "regex", "yaml", "h5py", "triton", "matplotlib", "PIL", "cv2"):
     sys.modules[name] = None  # any import of these raises ImportError
 import importlib, pkgutil
 import dropclip_tpu_torch as pkg
@@ -25,12 +25,13 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 leaked = sorted(n for n in ("jax", "flax", "dropclip_tpu", "regex", "yaml",
-                            "h5py", "triton", "matplotlib", "PIL")
+                            "h5py", "triton", "matplotlib", "PIL", "cv2")
                 if sys.modules.get(n) is not None)
 assert not leaked, leaked
 for m in ("teachers.convert", "distill.evaluate", "viz",
           "tools.validate_blender", "tools.validate_upper_bound",
-          "tools.run_eval", "tools.make_visualizations"):
+          "tools.run_eval", "tools.make_visualizations", "teachers.dinov2",
+          "teachers.dino_v1", "tools.dino_extract", "tools.clip_extract"):
     assert "dropclip_tpu_torch." + m in mods, m
 import torch
 torch.cuda.is_available = lambda: False
@@ -47,6 +48,9 @@ from dropclip_tpu_torch.tools.train_distil import main as train_main
 from dropclip_tpu_torch.tools import (make_visualizations, run_eval,
                                       validate_blender, validate_upper_bound)
 from dropclip_tpu_torch.teachers.convert import build_clip_from
+from dropclip_tpu_torch.teachers.dinov2 import build_dinov2
+from dropclip_tpu_torch.teachers.dino_v1 import ViTExtractor, build_dino_v1
+from dropclip_tpu_torch.tools import clip_extract, dino_extract
 import numpy as np
 z = np.zeros((1, 4, 4), np.float32)
 y = "configs/DistilBlender.yaml"
@@ -60,6 +64,16 @@ for make in (lambda: GroundingPipeline(cfg), lambda: GroundingPipeline(pcfg),
              lambda: build_pillar_topology(np.zeros((4, 3)), np.ones(4)),
              lambda: make_clip_sim(cfg),
              lambda: build_clip("tiny-test"),
+             lambda: build_clip("tiny-test-rn"),
+             lambda: build_dinov2("tiny-test"),
+             lambda: build_dino_v1("tiny-test", 4),
+             lambda: ViTExtractor("tiny-test"),
+             lambda: dino_extract.main(["--images", y, "--out", "nowhere",
+                                        "--model", "tiny-test"]),
+             lambda: dino_extract.main(["--images", y, "--out", "nowhere",
+                                        "--model", "dino_vits8"]),
+             lambda: clip_extract.main(["--images", y, "--out", "nowhere",
+                                        "--clip-model", "tiny-test"]),
              lambda: stage_scene(z[..., None].repeat(3, -1), z, z, np.eye(4),
                                  np.eye(3)),
              lambda: train_main(["--config", "configs/DistilBlender.yaml"])):
@@ -73,6 +87,9 @@ GroundingPipeline(cfg, clip_sim=make_clip_sim(cfg, device="cpu"),
                   device="cpu")
 GroundingPipeline(pcfg, device="cpu")
 build_clip("tiny-test", device="cpu")
+build_clip("tiny-test-rn", device="cpu")
+build_dinov2("tiny-test", device="cpu")
+ViTExtractor("tiny-test", device="cpu")
 import tempfile
 from dropclip_tpu_torch.core.config import load_cfg
 from dropclip_tpu_torch.data import build_dataset_for
@@ -92,7 +109,7 @@ def test_imports_without_jax_yaml_regex_triton():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 61  # every module of the package was imported
+    assert n >= 65  # every module of the package was imported
 
 
 def test_no_forbidden_imports_in_sources():

@@ -1,7 +1,8 @@
 """Offline ingest end to end: dropclip_tpu_torch.tools.preprocess_data
 against dropclip_tpu.tools.preprocess_data on the same make_raw_scene with
 the tiny-test CLIP (JAX init carried across), both writing h5 files that
-are read back and compared."""
+are read back and compared; the extractor's per-view prompt path
+(``DROPCLIP_PACKED_PROMPTS=0``) against the JAX package's."""
 
 import os
 
@@ -170,3 +171,58 @@ def test_cli_synthetic_on_cpu(tmp_path, capsys):
     assert "000000: {'points'" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         tpre.main(["-ds", "Blender", "-c", str(tmp_path)])
+
+
+def _prompt_scene(rng, v=11, h=40, w=48, k=6):
+    """Views with up to k-1 rectangular objects each (id 0 background);
+    object k never appears."""
+    imgs = (rng.rand(v, h, w, 3) * 255).astype(np.uint8)
+    segs = np.zeros((v, h, w), np.int32)
+    for i in range(v):
+        for o in range(1, k):
+            if rng.rand() < 0.6:
+                y, x = rng.randint(0, h - 10), rng.randint(0, w - 10)
+                segs[i, y: y + 8, x: x + 9] = o
+    return imgs, segs
+
+
+@pytest.mark.parametrize("v,id0,chunks", [(11, 0, 2), (3, 0, 1),
+                                           (3, 20, 1)])
+def test_per_view_prompts_match_jax(monkeypatch, extractors, v, id0,
+                                    chunks):
+    """DROPCLIP_PACKED_PROMPTS=0 (chunks of up to 8 views, each at the ids
+    present anywhere in the scene) against the JAX per-view path at its
+    default bucket: features within 1e-5 of max|ref| and present equal;
+    the packed route gives the same rows. Ids from 20 on are in no view,
+    so every row is zero."""
+    jex, tex = extractors
+    imgs, segs = _prompt_scene(np.random.RandomState(1), v=v)
+    ids = np.arange(id0, id0 + 8)
+    monkeypatch.setenv("DROPCLIP_PACKED_PROMPTS", "0")
+    rf, rp = jex.extract_obj_prior(imgs, segs, obj_ids=ids)
+    before = tex.chunks
+    gf, gp = tex.extract_obj_prior(imgs, segs, obj_ids=ids)
+    assert tex.chunks - before == chunks
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(rp))
+    ref = np.asarray(rf)
+    assert np.abs(gf.numpy() - ref).max() <= 1e-5 * max(np.abs(ref).max(),
+                                                         1e-30)
+    assert (gf.numpy()[~gp.numpy()] == 0).all()
+    assert gp.numpy().any() == (id0 == 0)
+    monkeypatch.setenv("DROPCLIP_PACKED_PROMPTS", "1")
+    hf, hp = tex.extract_obj_prior(imgs, segs, obj_ids=ids)
+    np.testing.assert_array_equal(hp.numpy(), gp.numpy())
+    assert np.abs(hf.numpy() - gf.numpy()).max() <= 1e-5 * max(
+        np.abs(ref).max(), 1e-30)
+
+
+def test_on_device_gives_a_replica(extractors):
+    """on_device copies the model to the device and shares the settings;
+    the replica gives the same features."""
+    _, tex = extractors
+    rep = tex.on_device("cpu")
+    assert rep.model is not tex.model and rep.img_resize == tex.img_resize
+    imgs, segs = _prompt_scene(np.random.RandomState(2), v=3)
+    a, _ = tex.extract_obj_prior(imgs, segs, obj_ids=np.arange(4))
+    b, _ = rep.extract_obj_prior(imgs, segs, obj_ids=np.arange(4))
+    assert torch.equal(a, b)

@@ -959,3 +959,33 @@ def test_k1_backward_matches_plain_autograd(cuda, dtype, level, c, cout):
         k1.mirror_taps = k1_mirror
     assert float((bad - ref[0]).abs().max()) > 10 * limit * float(
         ref[0].abs().max())
+
+
+def test_k5_float32_at_dino_v1_512_matches_plain(cuda):
+    """K5's float32 instance at DINO v1 ViT-S/8, stride 4, on a 512x512
+    input: (1, 16130, 6, 64), the longest sequence the teachers give it.
+    Within 1e-5 of max|ref| plus rtol 1e-4, as the float32 instance's
+    other cases."""
+    gen = torch.Generator(device="cuda").manual_seed(16130)
+    q, k, v = (torch.randn((1, 16130, 6, 64), generator=gen, device=cuda)
+               for _ in range(3))
+    n5 = att.flash_attention_padded.launches
+    got = att.flash_attention_padded(q, k, v)
+    ref = att.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert att.flash_attention_padded.launches == n5 + 1
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def test_k4_at_dinov2_518_matches_plain(cuda):
+    """K4 at DINOv2-L/14 on 518x518 frames, 8 at a time: (8, 1370, 16, 64)
+    bf16, within 2 bf16 ulps of max|ref|."""
+    q, k, v = _qkv((8, 1370, 16, 64), seed=1370)
+    n4 = att.oneshot_attention.launches
+    got = att.oneshot_attention(q, k, v)
+    ref = att.oneshot_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert att.oneshot_attention.launches == n4 + 1
+    _assert_attention_close(got, ref)

@@ -268,3 +268,17 @@ def test_from_checkpoint_round_trips_the_trainers_checkpoint(tmp_path, rng):
     with pytest.raises(ValueError, match="clip_checkpoint"):
         GroundingPipeline.from_checkpoint(yaml, save, overrides=shape,
                                           device="cpu")
+
+
+def test_gather_engine_refusals_name_their_item():
+    """The gather engine is not ported: the pipeline and the train and
+    eval steps refuse it, naming its ROADMAP item (queue 1 item 7.2)."""
+    from dropclip_tpu_torch.distill import engine
+
+    cfg = CfgNode(dict(arch_3d="tiny", feat_dim=8, voxel_capacity=64,
+                       sparse_backend="gather", clip_checkpoint="random",
+                       clip_model="tiny-test"))
+    for refuse in (lambda: GroundingPipeline(cfg, device="cpu"),
+                   lambda: engine._require_bricks(cfg)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7.2"):
+            refuse()

@@ -1,8 +1,10 @@
 """CLIP checkpoint files: dropclip_tpu_torch.teachers.convert against
 dropclip_tpu.teachers.convert on a tiny-test state dict synthesised from a
 seed with numpy (OpenAI layout, its HuggingFace twin, a TorchScript
-archive), both packages' towers from one file, and the readers that take
-a checkpoint path (make_clip_sim, build_extractor)."""
+archive; the RN tower's OpenAI layout), both packages' towers from one
+file, and the readers that take a checkpoint path (make_clip_sim,
+build_extractor). The DINO teachers' converters (HuggingFace
+``Dinov2Model`` and facebookresearch/dino layouts) against the JAX ones."""
 
 from types import SimpleNamespace
 
@@ -157,16 +159,153 @@ def test_towers_from_one_file_match_jax(ckpt):
 
 
 def test_rn_layouts_raise(tmp_path, openai_sd):
-    sd = dict(openai_sd)
-    sd["visual.attnpool.positional_embedding"] = torch.zeros(5, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*RN"):
-        convert.from_openai_state_dict(sd)
+    """A file of one tower family read into a config of the other raises
+    (the RN entries are read since the RN towers were ported)."""
+    rn = convert.synthetic_openai_state_dict("tiny-test-rn", seed=4)
+    paths = {"vit": str(tmp_path / "vit.pt"), "rn": str(tmp_path / "rn.pt")}
+    torch.save(openai_sd, paths["vit"])
+    torch.save(rn, paths["rn"])
+    for name, path in (("tiny-test", paths["rn"]),
+                       ("tiny-test-rn", paths["vit"])):
+        with pytest.raises(RuntimeError, match="Missing key"):
+            convert.build_clip_from(name, path, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def rn_sd():
+    return convert.synthetic_openai_state_dict("tiny-test-rn", seed=5)
+
+
+def test_rn_converter_equals_jax_key_by_key(rn_sd):
+    """OpenAI RN layout: the port's converter equals clip_state_dict of
+    the JAX converter's tree (BatchNorm running stats, downsample branch,
+    attention pool), every tensor exactly; it fills every parameter of
+    the port's RN CLIP."""
+    ref = clip_state_dict(jax.tree_util.tree_map(
+        np.asarray, jconvert.from_openai_state_dict(rn_sd)))
+    got = convert.from_openai_state_dict(rn_sd)
+    assert set(got) == set(ref)
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    from dropclip_tpu_torch.teachers.clip import CLIP, CLIP_CONFIGS
+
+    assert set(got) == set(CLIP(**CLIP_CONFIGS["tiny-test-rn"]).state_dict())
+
+
+@pytest.mark.parametrize("name", ["RN50", "RN101", "RN50x4"])
+def test_rn_files_of_every_published_layout(name):
+    """synthetic_openai_state_dict draws each published RN layout: the
+    JAX converter reads it and the port's CLIP of that name takes it."""
+    from dropclip_tpu_torch.teachers.clip import CLIP, CLIP_CONFIGS
+
+    sd = convert.synthetic_openai_state_dict(name, seed=0,
+                                             dtype=torch.bfloat16)
+    jtree = jconvert.from_openai_state_dict(sd)
+    got = convert.from_openai_state_dict(sd)
+    assert len(got) == len(clip_state_dict(jtree))
+    model = CLIP(**CLIP_CONFIGS[name])
+    model.load_state_dict(got)
+    assert model.visual.attnpool.positional_embedding.shape == (
+        (CLIP_CONFIGS[name]["image_resolution"] // 32) ** 2 + 1,
+        CLIP_CONFIGS[name]["vision_width"] * 32)
+
+
+def test_rn_towers_from_one_file_match_jax(tmp_path, rn_sd):
+    """build_clip_from and build_clip_text_from on an RN file against the
+    JAX CLIP from load_params: encode_image, non-square patch features and
+    encode_text within 1e-5 of max|ref| in float32."""
     path = str(tmp_path / "rn.pt")
-    torch.save(sd, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*RN"):
-        convert.build_clip_from("tiny-test-rn", path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*RN"):
-        convert.synthetic_openai_state_dict("RN50")
+    torch.save(rn_sd, path)
+    jclip = jbuild_clip("tiny-test-rn", use_flash=False)
+    jvars = {"params": jconvert.load_params(path)}
+    model = convert.build_clip_from("tiny-test-rn", path,
+                                    dtype=torch.float32, device="cpu")
+    text = convert.build_clip_text_from("tiny-test-rn", path,
+                                        dtype=torch.float32)
+    toks = tokenize(PROMPTS)
+    rs = np.random.RandomState(0)
+    px = rs.randn(2, 64, 64, 3).astype(np.float32)
+    wide = rs.randn(2, 96, 160, 3).astype(np.float32)
+    with torch.no_grad():
+        got = {"text": model.encode_text(torch.as_tensor(toks)),
+               "text_tower": text(torch.as_tensor(toks)),
+               "image": model.encode_image(torch.as_tensor(px)),
+               "patch": model.get_patch_encodings(torch.as_tensor(wide))}
+    ref = {"text": jclip.apply(jvars, jnp.asarray(toks),
+                               method="encode_text"),
+           "image": jclip.apply(jvars, jnp.asarray(px),
+                                method="encode_image"),
+           "patch": jclip.apply(jvars, jnp.asarray(wide),
+                                method="get_patch_encodings")}
+    ref["text_tower"] = ref["text"]
+    for k in got:
+        r = np.asarray(ref[k])
+        assert got[k].shape == r.shape, k
+        err = np.abs(got[k].numpy() - r).max()
+        assert err <= 1e-5 * np.abs(r).max(), (k, err)
+
+
+@pytest.fixture(scope="module")
+def hf_dinov2():
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    out = {}
+    for ffn in ("mlp", "swiglu"):
+        cfg = transformers.Dinov2Config(
+            hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+            intermediate_size=128, image_size=28, patch_size=14,
+            layer_norm_eps=1e-6, use_swiglu_ffn=ffn == "swiglu")
+        m = transformers.Dinov2Model(cfg).eval()
+        with torch.no_grad():
+            for layer in m.encoder.layer:
+                layer.layer_scale1.lambda1.mul_(0.7)
+                layer.layer_scale2.lambda1.mul_(1.3)
+        out[ffn] = m
+    return out
+
+
+@pytest.mark.parametrize("ffn", ["mlp", "swiglu"])
+def test_dinov2_converter_equals_jax_key_by_key(hf_dinov2, ffn):
+    """A ``transformers.Dinov2Model`` built from a tiny config: the port's
+    from_hf_dinov2 equals dinov2_state_dict of the JAX converter's tree
+    key by key, exactly; the port's model read from it gives HF's
+    last_hidden_state within 1e-4 (HF's own attention and GELU)."""
+    from dropclip_tpu.teachers.dinov2 import from_hf_dinov2 as jfrom
+    from dropclip_tpu_torch.convert import dinov2_state_dict
+    from dropclip_tpu_torch.teachers import dinov2
+
+    hf = hf_dinov2[ffn]
+    sd = hf.state_dict()
+    ref = dinov2_state_dict(jax.tree_util.tree_map(np.asarray, jfrom(sd)))
+    got = dinov2.from_hf_dinov2(sd)
+    assert set(got) == set(ref)
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    model = dinov2.build_dinov2("tiny-test", device="cpu", ffn=ffn)
+    model.load_state_dict(got)
+    px = np.random.RandomState(1).randn(2, 28, 28, 3).astype(np.float32)
+    with torch.no_grad():
+        want = hf(pixel_values=torch.as_tensor(
+            px.transpose(0, 3, 1, 2))).last_hidden_state
+        cls, patch = model(torch.as_tensor(px))
+    assert (cls - want[:, 0]).abs().max() < 1e-4
+    assert (patch.reshape(2, 4, 64) - want[:, 1:]).abs().max() < 1e-4
+
+
+def test_dino_v1_converter_equals_jax_key_by_key():
+    """A facebookresearch/dino-layout state dict drawn from a seed: the
+    port's from_dino_v1 equals dino_v1_state_dict of the JAX converter's
+    tree key by key, and fills every parameter of the port's model."""
+    from dropclip_tpu.teachers import dino_v1 as jdino
+    from dropclip_tpu_torch.convert import dino_v1_state_dict
+    from dropclip_tpu_torch.teachers import dino_v1
+
+    sd = dino_v1.synthetic_dino_v1_state_dict("tiny-test-deep", seed=3)
+    ref = dino_v1_state_dict(jax.tree_util.tree_map(
+        np.asarray, jdino.from_dino_v1(sd)))
+    got = dino_v1.from_dino_v1(sd)
+    assert set(got) == set(ref)
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    assert set(got) == set(dino_v1.build_dino_v1(
+        "tiny-test-deep", 2, device="cpu").state_dict())
 
 
 def test_readers_take_a_checkpoint_path(ckpt, capsys):
