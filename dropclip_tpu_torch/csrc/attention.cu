@@ -13,8 +13,9 @@
 // because of the transposes XLA put around the per-head one.
 //
 // Three instances, chosen by the wrapper (kernels/attention.py) from the
-// type and the head dim: v3 (bf16, D = 64, every shape the port's paths
-// run), v2 (bf16, D = 16 and 32) and a float32 instance.
+// type and the head dim: v3 (bf16, D = 64, every bf16 shape the port's
+// paths run), v2 (bf16, D = 16 and 32) and f32x3 (float32, D = 16, 32 and
+// 64: DINO v1's teacher and `build_clip`'s default dtype).
 //
 // Numerics, the same in all three and those of the TPU body: logits
 // s = q.k in float32, then exp2(s * scale*log2(e) - m) with keys past T
@@ -76,13 +77,26 @@
 // ptxas inserts around the register operands).
 //
 // v2 (bf16, D = 16 and 32) runs both products on mma.sync from padded
-// tiles (ldmatrix), one warp per 16 query rows. The float32 instance
-// runs on the CUDA cores.
+// tiles (ldmatrix), one warp per 16 query rows.
+//
+// f32x3 (float32) runs both products on the TF32 tensor cores in 3xTF32
+// (csrc/tf32x3.cuh, K1's split) on v2's grid: at D = 64 on wgmma, at D = 16
+// and 32 on mma.sync; its notes are at the kernels. Bound: at DINO v1
+// S/8's (1, 16130, 6, 64) one call does 399.6 GFLOP, three TF32 products
+// each: 2.42 ms at 495 TFLOP/s, against 0.025 ms for its 25 MB (5.26 ms,
+// 0.46 of it, on the card). The instance it replaces ran both products as
+// scalar FMAs on the CUDA cores (26.88 ms there, 14.9 TFLOP/s, slower than
+// its plain version's 21.12 and SDPA's 11.96; NVIDIA H100 80GB HBM3, 700
+// W, PERF.md): a quarter of a float4 shared-memory broadcast per FMA, a
+// warp shuffle per key (two threads shared a query row) and 64 logits, 32
+// q values and 32 accumulators live per thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"  // split_tf32, mma_tf32x3
 
 namespace {
 
@@ -677,110 +691,529 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Float32 instance (the JAX kernels also run in float32). The same tiles,
-// masks and online softmax on the CUDA cores: the tensor cores take float32
-// only as TF32, which would round the inputs to 10 mantissa bits. Two
-// threads share a query row, each holding half of the head dim in
-// registers; a key's dot product is their two halves added with one
-// shuffle, so both hold the same logits, maximum and row sum. K and V
-// tiles are staged in shared memory (zeros past T) and every thread of a
-// warp reads the same key row, a broadcast. Probabilities stay in float32
-// (the TPU body's cast to the input type is then a no-op).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    attention_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o, int T,
-                         int H, float scale_log2, int causal) {
-  static_assert(D % 8 == 0 && D <= 64, "head dim");
-  constexpr int HD = D / 2;  // dims per thread
-  constexpr int C4 = D / 4;  // float4 chunks per row
-  __shared__ __align__(16) float sK[kBK][D];
-  __shared__ __align__(16) float sV[kBK][D];
+// ---- f32x3: the float32 instance, 3xTF32 on the tensor cores --------------
+//
+// Both products on the TF32 tensor cores in 3xTF32 (csrc/tf32x3.cuh, K1's
+// split: hi = rna(x), lo = rna(x - hi), lo*hi + hi*lo + hi*hi), v2's grid
+// and online softmax; probabilities stay float32 (the TPU body's cast to
+// the input type is a no-op), exp2f keeps them to float32's accuracy, and
+// each key tile's P V starts from zero and is added to the rescaled O in
+// one FFMA (O alpha + part): the tensor cores truncate as they accumulate,
+// so no chain runs over more than one tile. At D = 64 (DINO v1, every
+// shape the port's paths run) on wgmma, at D = 16 and 32 on mma.sync.
+
+// Bounds probe, 0 in the port: attention_timing.py --define
+// K5F32_PROBE=<bits> times the wgmma kernel with a part taken out (1: the
+// two small TF32 products of each product, 2: the split of K and V into
+// the tiles wgmma reads). A probe's results are wrong.
+#ifndef K5F32_PROBE
+#define K5F32_PROBE 0
+#endif
+
+// d (64 x 64, f32) += A (64 x 8, registers) B (8 x 64, K-major in shared
+// memory), TF32. A is the mma.sync m16n8k8 TF32 fragment of the warp's 16
+// rows (a0 row g col t, a1 row g+8 col t, a2 row g col t+4, a3 row g+8
+// col t+4).
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " V3_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : V3_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+// d += a b in 3xTF32 on wgmma, B's hi and lo parts in two tiles
+__device__ __forceinline__ void wgmma_tf32x3(float (&d)[32],
+                                             const uint32_t (&ahi)[4],
+                                             const uint32_t (&alo)[4],
+                                             uint64_t bhi, uint64_t blo) {
+  if ((K5F32_PROBE & 1) == 0) {
+    wgmma_rs_tf32(d, alo, bhi);
+    wgmma_rs_tf32(d, ahi, blo);
+  }
+  wgmma_rs_tf32(d, ahi, bhi);
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+
+// Shared memory of the wgmma kernel: the raw K and V tiles as cp.async
+// lands them (64 rows of 256 bytes, 16-byte chunk c of row r at c ^
+// raw_swz(r)), and the split tiles that wgmma reads, each 64 rows of 128
+// bytes in the 128-byte swizzle: K hi and lo as two halves of D (row =
+// key, K-major), V^T hi and lo as two halves of the keys (row = dim).
+constexpr int kRawTile = 64 * 256;
+constexpr int kF32WgmmaSmem = 2 * kRawTile + 8 * kTile + 1024;
+
+// the eight rows 8q + 2i + h (q = 0..3, h = 0, 1) that a phase of the V
+// transpose reads at one chunk land on eight banks
+__device__ __forceinline__ int raw_swz(int r) {
+  return ((r >> 3) & 3) << 1 | (r & 1);
+}
+
+// f32x3 at D = 64 on wgmma: one warpgroup per (64-query tile, head, batch).
+// - TF32 wgmma reads B only K-major, and 3xTF32 needs B's hi and lo parts
+//   apart, so each key tile is split once per block in shared memory: K as
+//   it lies (row = key), V transposed (row = dim). Q and P are A in
+//   registers, split there.
+// - O += P V with no shuffles: the S accumulator holds keys 2t and 2t + 1
+//   of each 8-key slice, so V^T keeps its keys in the order of P's
+//   relabelled A fragment (position t of each 8-key group is key 2t, t + 4
+//   key 2t + 1).
+// - The raw tile of the next keys lands while this one's products run; two
+//   barriers a tile. 96 KB of shared memory and 245 registers: two blocks
+//   per SM.
+// At D = 64 it replaced the mma.sync form that the D = 16 and 32 kernel
+// below keeps: 7.49 ms at (1, 16130, 6, 64) there against 5.19-5.27 here,
+// where the mma.sync form split every K and V fragment in each of the
+// block's four warps and held 255 registers. Not kept: ex2.approx.ftz for
+// exp2f (no gain) and the split of each tile's V under its S and of the
+// next K under its P V (four barriers a tile, 5.66 ms). The probe reads
+// 3.65 ms without the split pass and 3.99 ms with one TF32 product per
+// product (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+__global__ void __launch_bounds__(kThreads, 2)
+    attention_kernel_f32x3_wgmma(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 float* __restrict__ o, int T, int H,
+                                 float scale_log2, int causal) {
+  constexpr int D = 64;
+  constexpr uint64_t kStep = kTile >> 4;  // one split tile, in descriptor units
+  extern __shared__ uint8_t smem_f32[];
+  uint8_t* sT = align1024(smem_f32);  // KH0 KH1 KL0 KL1 VH0 VH1 VL0 VL1
+  float* rK = reinterpret_cast<float*>(sT + 8 * kTile);
+  float* rV = rK + kRawTile / 4;
 
   const int q0 = blockIdx.x * kBQ;
   const long long row_stride = (long long)H * D;
   const long long base =
       (long long)blockIdx.z * T * row_stride + (long long)blockIdx.y * D;
-  const int tid = threadIdx.x;
-  const int row = q0 + (tid >> 1), d0 = (tid & 1) * HD;
-
-  float qr[HD], acc[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    qr[c] = row < T ? q[base + row * row_stride + d0 + c] : 0.f;
-    acc[c] = 0.f;
-  }
-  float m_run = -CUDART_INF_F, l_run = 0.f;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
   int n_tiles = (T + kBK - 1) / kBK;
   if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < kBK * C4; i += kThreads) {
-      const int r = i / C4, c = (i % C4) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < T) {
-        const long long off = base + (k0 + r) * row_stride + c;
-        kv = *reinterpret_cast<const float4*>(k + off);
-        vv = *reinterpret_cast<const float4*>(v + off);
-      }
-      *reinterpret_cast<float4*>(&sK[r][c]) = kv;
-      *reinterpret_cast<float4*>(&sV[r][c]) = vv;
+  // stage the raw K and V rows [r0, r0 + 64), zeros past T
+  auto stage = [&](int r0) {
+#pragma unroll
+    for (int i = tid; i < kBK * 16; i += kThreads) {
+      const int r = i >> 4, c = i & 15;
+      const bool in = r0 + r < T;
+      const long long off =
+          base + (in ? (long long)(r0 + r) * row_stride + c * 4 : 0);
+      const int at = r * 64 + ((c ^ raw_swz(r)) << 2);
+      cp_async16(rK + at, k + off, in ? 16 : 0);
+      cp_async16(rV + at, v + off, in ? 16 : 0);
     }
-    __syncthreads();
+  };
+  stage(0);
+  cp_async_commit();
 
-    float s[kBK];
-    float m_tile = -CUDART_INF_F;
+  const int wr = warp * 16 + g;  // this thread's rows: wr and wr + 8
+  const int row_q[2] = {q0 + wr, q0 + wr + 8};
+  uint32_t qhi[D / 8][4], qlo[D / 8][4];
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(&sK[j][d0]);
-      float dot = 0.f;
+  for (int kk = 0; kk < D / 8; ++kk)
 #pragma unroll
-      for (int c = 0; c < HD / 4; ++c) {
-        const float4 x = kr[c];
-        dot += qr[4 * c] * x.x + qr[4 * c + 1] * x.y + qr[4 * c + 2] * x.z +
-               qr[4 * c + 3] * x.w;
-      }
-      dot += __shfl_xor_sync(0xffffffff, dot, 1);
-      const int key = k0 + j;
-      const float x = (key >= T || (causal && key > row)) ? -CUDART_INF_F
-                                                           : dot * scale_log2;
-      s[j] = x;
-      m_tile = fmaxf(m_tile, x);
+    for (int i = 0; i < 4; ++i) {
+      const int r = row_q[i & 1], d = kk * 8 + t + 4 * (i >> 1);
+      split_tf32(r < T ? q[base + r * row_stride + d] : 0.f, qhi[kk][i],
+                 qlo[kk][i]);
     }
-    const float m_new = fmaxf(m_run, m_tile);
-    const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
-    const float alpha = exp2f(m_run - m_use);
-    m_run = m_new;
-    l_run *= alpha;
+
+  float acc[32];
 #pragma unroll
-    for (int c = 0; c < HD; ++c) acc[c] *= alpha;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+  const uint64_t dT = sw128_desc(sT);  // split tile n at dT + n * kStep
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // raw tile kt has landed; the split tiles are free
+    if ((K5F32_PROBE & 2) == 0) {
+      // K: chunk c of row r to tile c / 8 (hi) and 2 + c / 8 (lo)
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float p = exp2f(s[j] - m_use);
-      l_run += p;
-      const float4* vr = reinterpret_cast<const float4*>(&sV[j][d0]);
-#pragma unroll
-      for (int c = 0; c < HD / 4; ++c) {
-        const float4 x = vr[c];
-        acc[4 * c] += p * x.x;
-        acc[4 * c + 1] += p * x.y;
-        acc[4 * c + 2] += p * x.z;
-        acc[4 * c + 3] += p * x.w;
+      for (int u = tid; u < 64 * 16; u += kThreads) {
+        const int r = u >> 4, c = u & 15;
+        const float4 x = *reinterpret_cast<const float4*>(
+            rK + r * 64 + ((c ^ raw_swz(r)) << 2));
+        uint4 hi, lo;
+        split_tf32(x.x, hi.x, lo.x);
+        split_tf32(x.y, hi.y, lo.y);
+        split_tf32(x.z, hi.z, lo.z);
+        split_tf32(x.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(sT + (c >> 3) * kTile + swz(r, c & 7)) = hi;
+        *reinterpret_cast<uint4*>(sT + (2 + (c >> 3)) * kTile +
+                                  swz(r, c & 7)) = lo;
       }
+      // V^T: unit (8-key group qg, parity h, 4-dim chunk dc) reads keys
+      // 8 qg + 2i + h (i = 0..3) at dims 4 dc..4 dc + 3 and writes them to
+      // positions 8 qg + 4h + i of each dim's row
+#pragma unroll
+      for (int u = tid; u < 8 * 2 * 16; u += kThreads) {
+        const int qg = ((u >> 7) << 2) | ((u & 7) >> 1), h = u & 1;
+        const int dc = (u >> 3) & 15;
+        float x[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 8 * qg + 2 * i + h;
+          const float4 y = *reinterpret_cast<const float4*>(
+              rV + r * 64 + ((dc ^ raw_swz(r)) << 2));
+          x[i][0] = y.x, x[i][1] = y.y, x[i][2] = y.z, x[i][3] = y.w;
+        }
+        const int pos = 8 * qg + 4 * h;
+        const int tile = pos >> 5, c = (pos & 31) >> 2;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint4 hi, lo;
+          split_tf32(x[0][j], hi.x, lo.x);
+          split_tf32(x[1][j], hi.y, lo.y);
+          split_tf32(x[2][j], hi.z, lo.z);
+          split_tf32(x[3][j], hi.w, lo.w);
+          const int dim = 4 * dc + j;
+          *reinterpret_cast<uint4*>(sT + (4 + tile) * kTile + swz(dim, c)) = hi;
+          *reinterpret_cast<uint4*>(sT + (6 + tile) * kTile + swz(dim, c)) = lo;
+        }
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();  // the split tiles are written, the raw tile is read
+    if (kt + 1 < n_tiles) {
+      stage((kt + 1) * kBK);
+      cp_async_commit();
+    }
+    const int k0 = kt * kBK;
+
+    // S = Q K^T, k-step kk of 8 dims in half kk / 4 of D
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint64_t b = dT + (kk >> 2) * kStep + 2 * (kk & 3);
+      wgmma_tf32x3(s, qhi[kk], qlo[kk], b, b + 2 * kStep);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+
+    // mask where the tile needs it; the running maximum per row is taken on
+    // the raw logits and then scaled (scale_log2 > 0), and
+    // exp2(s * scale_log2 - m) is one fma into exp2f
+    const bool full = k0 + kBK <= T && (!causal || k0 + kBK - 1 <= q0);
+    float m_tile[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int ri = (i >> 1) & 1;
+      if (!full) {
+        const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        if (key >= T || (causal && key > row_q[ri])) s[i] = -CUDART_INF_F;
+      }
+      m_tile[ri] = fmaxf(m_tile[ri], s[i]);
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      m_tile[ri] = fmaxf(m_tile[ri], __shfl_xor_sync(0xffffffff, m_tile[ri], 1));
+      m_tile[ri] = fmaxf(m_tile[ri], __shfl_xor_sync(0xffffffff, m_tile[ri], 2));
+      const float m_new = fmaxf(m_run[ri], m_tile[ri] * scale_log2);
+      // a row with no key yet keeps m = -inf; exp2 against 0 then gives 0
+      m_use[ri] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[ri] = exp2f(m_run[ri] - m_use[ri]);
+      m_run[ri] = m_new;
+      l_run[ri] *= alpha[ri];
+    }
+    // P, split: key slice j's accumulator is k-step j's A fragment with a1
+    // and a2 swapped (key 2t + 1 is k-index t + 4)
+    uint32_t phi[kBK / 8][4], plo[kBK / 8][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = exp2f(fmaf(s[i], scale_log2, -m_use[(i >> 1) & 1]));
+      l_run[(i >> 1) & 1] += p;
+      const int e = i & 3, a = e == 1 ? 2 : e == 2 ? 1 : e;
+      split_tf32(p, phi[i >> 2][a], plo[i >> 2][a]);
+    }
+
+    // O = O alpha + P V
+    float part[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) part[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      const uint64_t b = dT + (4 + (j >> 2)) * kStep + 2 * (j & 3);
+      wgmma_tf32x3(part, phi[j], plo[j], b, b + 2 * kStep);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(phi);
+    reg_fence(plo);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], part[i]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    float l = l_run[ri];
+    l += __shfl_xor_sync(0xffffffff, l, 1);
+    l += __shfl_xor_sync(0xffffffff, l, 2);
+    inv[ri] = 1.f / l;
+  }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    if (row_q[ri] >= T) continue;
+    float* orow = o + base + row_q[ri] * row_stride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8 + 2 * t) =
+          make_float2(acc[4 * n + 2 * ri] * inv[ri],
+                      acc[4 * n + 2 * ri + 1] * inv[ri]);
+  }
+}
+
+// The mma.sync kernel's K and V tiles (D = 16 and 32). Row strides (floats)
+// padded so that each fragment read of a warp touches every bank once per
+// 128-byte phase: K's (a float4 per lane at row 8j + g, column 16m + 4t)
+// with a stride of 16 mod 32, V's (kW floats per lane at row 2t (+1),
+// column kW g) with a stride of 4 mod 32.
+template <int D>
+struct F32Mma {
+  static_assert(D == 16 || D == 32, "head dim");
+  static constexpr int kLdK = D == 32 ? D + 16 : D;
+  static constexpr int kLdV = D + 4;
+  static constexpr int kW = D / 8;  // V floats per read, O tiles per warp
+  static constexpr int kSmem = 2 * kBK * (kLdK + kLdV) * 4;  // two stages
+};
+
+template <int W>
+__device__ __forceinline__ void ld_f32(float (&x)[W], const float* p) {
+  if constexpr (W == 4) {
+    const float4 r = *reinterpret_cast<const float4*>(p);
+    x[0] = r.x, x[1] = r.y, x[2] = r.z, x[3] = r.w;
+  } else {
+    const float2 r = *reinterpret_cast<const float2*>(p);
+    x[0] = r.x, x[1] = r.y;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void st_f32(float* p, const float (&x)[W]) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+
+// f32x3 at D = 16 and 32 on mma.sync m16n8k8: each warp owns 16 query
+// rows, whose fragments are split once; K and V stream raw through a
+// cp.async double buffer and are split in registers, as K1's mma_step does.
+// - S = Q K^T: the reduction over D is order-free, so k-step 2m + e of
+//   thread t takes the dims 16m + 4t + 2e and +1: a float4 of K's row (one
+//   shared read for two k-steps) and of Q's, straight from memory.
+// - O += P V with no shuffles: P V's k-index t is key 2t and t + 4 key
+//   2t + 1 (the S accumulator's layout), so V's B fragment takes rows 2t
+//   and 2t + 1; output column n of 8-wide tile w is dim kW n + w, so a lane
+//   reads kW contiguous floats of V per row and writes 2 kW of O.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    attention_kernel_f32x3(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int T, int H, float scale_log2, int causal) {
+  using L = F32Mma<D>;
+  constexpr int W = L::kW;
+  extern __shared__ __align__(16) float smem_mma[];
+  float* sK = smem_mma;                      // two stages of kBK x kLdK
+  float* sV = smem_mma + 2 * kBK * L::kLdK;  // two stages of kBK x kLdV
+
+  const int q0 = blockIdx.x * kBQ;
+  const long long row_stride = (long long)H * D;
+  const long long base =
+      (long long)blockIdx.z * T * row_stride + (long long)blockIdx.y * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  int n_tiles = (T + kBK - 1) / kBK;
+  if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
+
+  // stage the K and V rows [r0, r0 + 64) into stage buf, zeros past T
+  auto stage = [&](int buf, int r0) {
+    float* dk = sK + buf * kBK * L::kLdK;
+    float* dv = sV + buf * kBK * L::kLdV;
+    constexpr int R4 = D / 4;  // 16-byte chunks per row
+#pragma unroll
+    for (int i = tid; i < kBK * R4; i += kThreads) {
+      const int r = i / R4, c = (i % R4) * 4;
+      const bool in = r0 + r < T;
+      const long long off =
+          base + (in ? (long long)(r0 + r) * row_stride + c : 0);
+      cp_async16(dk + r * L::kLdK + c, k + off, in ? 16 : 0);
+      cp_async16(dv + r * L::kLdV + c, v + off, in ? 16 : 0);
+    }
+  };
+  stage(0, 0);
+  cp_async_commit();
+
+  const int wr = warp * 16 + g;  // this thread's rows: wr and wr + 8
+  const int row_q[2] = {q0 + wr, q0 + wr + 8};
+  uint32_t qhi[D / 8][4], qlo[D / 8][4];
+#pragma unroll
+  for (int m = 0; m < D / 16; ++m) {
+    float a[2][4];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      if (row_q[ri] < T)
+        ld_f32<4>(a[ri], q + base + row_q[ri] * row_stride + 16 * m + 4 * t);
+      else
+        a[ri][0] = a[ri][1] = a[ri][2] = a[ri][3] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      split_tf32(a[0][2 * e], qhi[2 * m + e][0], qlo[2 * m + e][0]);
+      split_tf32(a[1][2 * e], qhi[2 * m + e][1], qlo[2 * m + e][1]);
+      split_tf32(a[0][2 * e + 1], qhi[2 * m + e][2], qlo[2 * m + e][2]);
+      split_tf32(a[1][2 * e + 1], qhi[2 * m + e][3], qlo[2 * m + e][3]);
     }
   }
 
-  if (row >= T) return;
-  const float inv = 1.f / l_run;
-  float* orow = o + base + row * row_stride + d0;
+  float acc[W][4];
 #pragma unroll
-  for (int c = 0; c < HD / 4; ++c)
-    *reinterpret_cast<float4*>(orow + 4 * c) =
-        make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv,
-                    acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
+  for (int j = 0; j < W; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = kt & 1;
+    cp_async_wait<0>();  // tile kt has landed
+    // every thread is done with tile kt - 1, whose stage is refilled now
+    // with tile kt + 1 while tile kt computes
+    __syncthreads();
+    if (kt + 1 < n_tiles) {
+      stage(buf ^ 1, (kt + 1) * kBK);
+      cp_async_commit();
+    }
+    const float* tK = sK + buf * kBK * L::kLdK;
+    const float* tV = sV + buf * kBK * L::kLdV;
+    const int k0 = kt * kBK;
+
+    // S = Q K^T, one chain from zero per 8-key slice
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      const float* kr = tK + (nt * 8 + g) * L::kLdK + 4 * t;
+#pragma unroll
+      for (int m = 0; m < D / 16; ++m) {
+        float x[4];
+        ld_f32<4>(x, kr + 16 * m);
+        uint32_t bh[4], bl[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(x[i], bh[i], bl[i]);
+        mma_tf32x3(s[nt], qhi[2 * m], qlo[2 * m], bh[0], bl[0], bh[1], bl[1]);
+        mma_tf32x3(s[nt], qhi[2 * m + 1], qlo[2 * m + 1], bh[2], bl[2],
+                   bh[3], bl[3]);
+      }
+    }
+
+    // the softmax step of the wgmma kernel, on the mma.sync layout
+    const bool full = k0 + kBK <= T && (!causal || k0 + kBK - 1 <= q0);
+    float m_tile[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = e >> 1;
+        if (!full) {
+          const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          if (key >= T || (causal && key > row_q[ri])) s[nt][e] = -CUDART_INF_F;
+        }
+        m_tile[ri] = fmaxf(m_tile[ri], s[nt][e]);
+      }
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      m_tile[ri] = fmaxf(m_tile[ri], __shfl_xor_sync(0xffffffff, m_tile[ri], 1));
+      m_tile[ri] = fmaxf(m_tile[ri], __shfl_xor_sync(0xffffffff, m_tile[ri], 2));
+      const float m_new = fmaxf(m_run[ri], m_tile[ri] * scale_log2);
+      m_use[ri] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[ri] = exp2f(m_run[ri] - m_use[ri]);
+      m_run[ri] = m_new;
+      l_run[ri] *= alpha[ri];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[nt][e], scale_log2, -m_use[e >> 1]));
+        s[nt][e] = p;
+        l_run[e >> 1] += p;
+      }
+    }
+
+    // O = O alpha + P V; P's A fragment of key slice nt is its S
+    // accumulator, relabelled
+    float part[W][4] = {};
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[nt][0], ph[0], pl[0]);
+      split_tf32(s[nt][2], ph[1], pl[1]);
+      split_tf32(s[nt][1], ph[2], pl[2]);
+      split_tf32(s[nt][3], ph[3], pl[3]);
+      const float* vr = tV + (nt * 8 + 2 * t) * L::kLdV + W * g;
+      float x0[W], x1[W];
+      ld_f32<W>(x0, vr);
+      ld_f32<W>(x1, vr + L::kLdV);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(x0[w], bh0, bl0);
+        split_tf32(x1[w], bh1, bl1);
+        mma_tf32x3(part[w], ph, pl, bh0, bl0, bh1, bl1);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[w][e] = fmaf(acc[w][e], alpha[e >> 1], part[w][e]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    float l = l_run[ri];
+    l += __shfl_xor_sync(0xffffffff, l, 1);
+    l += __shfl_xor_sync(0xffffffff, l, 2);
+    inv[ri] = 1.f / l;
+  }
+  // this thread's columns n = 2t + e of tile w hold dims kW (2t + e) + w
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    if (row_q[ri] >= T) continue;
+    float* orow = o + base + row_q[ri] * row_stride;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) x[w] = acc[w][2 * ri + e] * inv[ri];
+      st_f32<W>(orow + W * (2 * t + e), x);
+    }
+  }
 }
 
 template <typename E>
@@ -804,6 +1237,9 @@ int launch(Kernel<E> kernel, int smem, const void* q, const void* k,
 
 // Q, two K and two V stages, and the slack to align them to 1024 bytes
 constexpr int kV3Smem = 5 * kTile + 1024;
+
+// devices whose shared-memory attribute the float32 launch remembers
+constexpr int kMaxDevices = 64;
 
 }  // namespace
 
@@ -831,15 +1267,32 @@ int dropclip_attention(const void* q, const void* k, const void* v, void* o,
   return launch(kernel, 0, q, k, v, o, B, T, H, scale_log2, causal, stream);
 }
 
-// float32, D = 16, 32 or 64
+// float32 (3xTF32), D = 16, 32 or 64
 int dropclip_attention_f32(const void* q, const void* k, const void* v, void* o,
                            int B, int T, int H, int D, float scale_log2,
                            int causal, void* stream) {
-  Kernel<float> kernel = D == 16   ? attention_kernel_f32<16>
-                         : D == 32 ? attention_kernel_f32<32>
-                         : D == 64 ? attention_kernel_f32<64>
+  Kernel<float> kernel = D == 16   ? attention_kernel_f32x3<16>
+                         : D == 32 ? attention_kernel_f32x3<32>
+                         : D == 64 ? attention_kernel_f32x3_wgmma
                                    : nullptr;
-  return launch(kernel, 0, q, k, v, o, B, T, H, scale_log2, causal, stream);
+  const int smem = D == 16   ? F32Mma<16>::kSmem
+                   : D == 32 ? F32Mma<32>::kSmem
+                             : kF32WgmmaSmem;
+  // above 48 KB (the wgmma kernel only) a block's shared memory is dynamic
+  // only when set so: once per device, not on every launch
+  if (kernel != nullptr && smem > 48 * 1024) {
+    static bool attr_set[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kMaxDevices || !attr_set[dev]) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < kMaxDevices) attr_set[dev] = true;
+    }
+  }
+  return launch(kernel, smem, q, k, v, o, B, T, H, scale_log2, causal, stream);
 }
 
 // the descriptor self-test: a, b 64 x 64 bf16, c 64 x 64 float32

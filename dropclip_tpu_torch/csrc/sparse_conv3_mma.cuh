@@ -9,10 +9,11 @@
 // Instances (picked by kernels/brick_conv3.py::instance for both):
 //   Tf32x3     float32 through 3xTF32 on mma.sync m16n8k8: each operand
 //              split hi = rna(x), lo = rna(x - hi) in integer operations
-//              (tf32_rna), lo*hi + hi*lo + hi*hi; each 16 channels'
-//              products start from zero and are added in round-to-nearest
-//              FADD, since the tensor cores truncate as they accumulate
-//              (one chain as long as K drifted by 8.5e-5 of max|ref|).
+//              (tf32_rna, csrc/tf32x3.cuh), lo*hi + hi*lo + hi*hi; each 16
+//              channels' products start from zero and are added in
+//              round-to-nearest FADD, since the tensor cores truncate as
+//              they accumulate (one chain as long as K drifted by 8.5e-5
+//              of max|ref|).
 //   Bf16Wgmma  bf16 on wgmma m64n64k16 from 128B-swizzled tiles: the
 //              gathered rows K-major, the weight slice in two 64-channel
 //              MN-major halves.
@@ -28,6 +29,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"  // tf32_rna, split_tf32, mma_tf32
 
 // Bounds probe, 0 in the port: brick_conv_variants.py builds K1 with
 // -DK1_PROBE=<bits> to time it with a part taken out (1: the tensor-core
@@ -66,30 +69,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Round to the nearest TF32 (10 mantissa bits), ties away from zero: half
-// a TF32 ulp added to the magnitude bits, the low 13 bits cleared. For
-// every finite x this is cvt.rna.tf32.f32(x), in two full-rate integer
-// operations where cvt runs at a fraction of that rate (14% of K1's
-// float32 time per forward, brick_conv_timing.py).
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to about 21 mantissa bits: hi = tf32(x), lo = tf32(x - hi)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The 128-byte swizzle of wgmma: 16-byte chunk c of row r lies at chunk

@@ -5,10 +5,12 @@ bfloat16 or float32 CUDA tensors laid out as (B, T, H, D) or,
 equivalently, packed (B, T, H*D), and returns a new tensor of the same
 shape; it raises on anything the kernel does not take. ``instance`` picks
 the kernel's instance from the type and the head dim: v3 (``wgmma``) for
-bfloat16 at D = 64, v2 (``mma.sync``) for bfloat16 at D = 16 and 32, the
-float32 instance (CUDA cores) for float32. The three entry points that
-count launches, and their plain versions, are in ``ops/attention.py``. The
-source's header note gives the design and the bound.
+bfloat16 at D = 64, v2 (``mma.sync``) for bfloat16 at D = 16 and 32, and
+f32x3 for float32 (3xTF32 on the tensor cores, float32 accurate:
+``wgmma`` at D = 64, ``mma.sync`` at D = 16 and 32). The three entry
+points that count launches, and their plain versions, are in
+``ops/attention.py``. The source's header note gives the design and the
+bound.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ DTYPES = (torch.bfloat16, torch.float32)
 
 def instance(dtype: torch.dtype, d: int) -> str:
     """The kernel instance that takes (dtype, head dim d): "v3", "v2" or
-    "f32". Raises TypeError for a dtype and ValueError for a head dim
+    "f32x3". Raises TypeError for a dtype and ValueError for a head dim
     that no instance takes."""
     if dtype not in DTYPES:
         raise TypeError(f"dtype {dtype}: the kernel takes bfloat16 or "
@@ -34,7 +36,7 @@ def instance(dtype: torch.dtype, d: int) -> str:
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if dtype == torch.float32:
-        return "f32"
+        return "f32x3"
     return "v3" if d == 64 else "v2"
 
 
@@ -91,7 +93,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = lib.dropclip_attention_v3(*ptrs, b, t, heads, scale_log2,
                                             int(bool(causal)), stream)
         else:
-            fn = (lib.dropclip_attention_f32 if kind == "f32"
+            fn = (lib.dropclip_attention_f32 if kind == "f32x3"
                   else lib.dropclip_attention)
             err = fn(*ptrs, b, t, heads, d, scale_log2, int(bool(causal)),
                      stream)

@@ -8,10 +8,16 @@ tower's ``LayerNormF32`` (reference models/features/clip/model.py:180-187).
 
 Bound: a row reduction plus an elementwise pass; each row is read once
 and written once, so the op is bound by memory bytes (2 * rows * C *
-itemsize), never by arithmetic (~9 flops per element). Design: one
-program per row; the whole row (768 wide in ViT-L's text tower) sits in
-one power-of-two block with a mask, so the two passes over it run from
-registers and the row crosses device memory once each way.
+itemsize), never by arithmetic (~9 flops per element). Design: the whole
+row sits in one power-of-two block of lanes with a mask, so the two
+passes over it run from registers and the row crosses device memory once
+each way. ``launch_config`` shapes the programs from the width and the
+row count: at 1024 rows or more, a row of 512 lanes or fewer (DINO v1's
+384) goes to one warp, two rows to a program, so no program reduces
+across warps over a block whose last warp is masked; a wider row (768 in
+ViT-L's text tower, 1024 in its vision tower), or one of few rows (a
+text tower's 4 x 77 at 512), takes a whole program of 4 warps (8 above
+1024 lanes).
 
 K7 replaces ``dropclip_tpu/ops/layernorm.py::add_layer_norm``
 (``_pallas_fused``, body ``_fused_kernel``): ``s = res + delta`` rounded to
@@ -19,8 +25,8 @@ the stream dtype, exactly as the unfused ``x + attn(...)`` add, then
 ``y = LN_f32(s)``; it returns ``(s, y)``. Bound: it reads two rows and
 writes two, 4 * rows * C * itemsize bytes (605 MB at the ViT-L teacher's
 (96*769, 1024) bf16 rows, 0.18 ms at 3.35 TB/s), against ~10 flops per
-element. Design as K6: one program per row, the row in registers, so the
-residual sum crosses device memory once instead of three times (add, then
+element. Design as K6, on the same launch configuration, so the residual
+sum crosses device memory once instead of three times (add, then
 LayerNorm reading it back).
 
 ``layer_norm`` and ``add_layer_norm`` are the wrappers: CUDA tensors
@@ -32,47 +38,71 @@ built, never at module import.
 
 import torch
 
-_kernels = {}
+# widest row (in lanes) that one warp takes whole, two rows to a program,
+# and the fewest rows that take that path: below it the one-warp programs
+# (4 to an SM of the H100's 132 at 1024 rows) leave the card idle, and a
+# row's latency, which 4 warps cut, decides
+WARP_ROW_MAX = 512
+WARP_ROW_MIN_ROWS = 1024
+ROWS_PER_WARP_PROGRAM = 2
 
 
-# Triton reads the string annotation; ``tl`` is bound by ``_build``.
-def _ln_rows(x_ptr, s_ptr, b_ptr, y_ptr, n_cols, eps,
-             BLOCK: "tl.constexpr"):  # noqa: F821
-    row = tl.program_id(0)
-    cols = tl.arange(0, BLOCK)
-    inb = cols < n_cols
-    base = row.to(tl.int64) * n_cols
-    x = tl.load(x_ptr + base + cols, mask=inb, other=0.0).to(tl.float32)
-    mean = tl.sum(x, axis=0) / n_cols
-    xc = tl.where(inb, x - mean, 0.0)
-    var = tl.sum(xc * xc, axis=0) / n_cols
+def launch_config(n_rows: int, c: int):
+    """(BLOCK, ROWS, num_warps) of K6's and K7's launch over ``n_rows``
+    rows of width ``c``: BLOCK lanes per row (the next power of two), ROWS
+    rows per program, num_warps warps per program. The dtype does not
+    change it."""
+    block = 1 << max(c - 1, 0).bit_length()
+    if block <= WARP_ROW_MAX and n_rows >= WARP_ROW_MIN_ROWS:
+        return block, ROWS_PER_WARP_PROGRAM, 1
+    return block, 1, 4 if block <= 1024 else 8
+
+
+# Triton reads the string annotations; ``tl`` is bound by ``_build``.
+def _ln_rows(x_ptr, s_ptr, b_ptr, y_ptr, n_rows, eps,
+             N_COLS: "tl.constexpr", BLOCK: "tl.constexpr",  # noqa: F821
+             ROWS: "tl.constexpr"):  # noqa: F821
+    rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)[:, None]
+    cols = tl.arange(0, BLOCK)[None, :]
+    inc = cols < N_COLS
+    inb = (rows < n_rows) & inc
+    offs = rows.to(tl.int64) * N_COLS + cols
+    x = tl.load(x_ptr + offs, mask=inb, other=0.0).to(tl.float32)
+    mean = tl.sum(x, axis=1)[:, None] / N_COLS
+    xc = tl.where(inc, x - mean, 0.0)
+    var = tl.sum(xc * xc, axis=1)[:, None] / N_COLS
     rstd = tl.rsqrt(var + eps)
-    s = tl.load(s_ptr + cols, mask=inb, other=0.0).to(tl.float32)
-    b = tl.load(b_ptr + cols, mask=inb, other=0.0).to(tl.float32)
+    s = tl.load(s_ptr + cols, mask=inc, other=0.0).to(tl.float32)
+    b = tl.load(b_ptr + cols, mask=inc, other=0.0).to(tl.float32)
     y = xc * rstd * s + b
-    tl.store(y_ptr + base + cols, y.to(y_ptr.dtype.element_ty), mask=inb)
+    tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=inb)
 
 
-def _add_ln_rows(r_ptr, d_ptr, s_ptr, b_ptr, so_ptr, y_ptr, n_cols, eps,
-                 BLOCK: "tl.constexpr"):  # noqa: F821
-    row = tl.program_id(0)
-    cols = tl.arange(0, BLOCK)
-    inb = cols < n_cols
-    base = row.to(tl.int64) * n_cols
-    r = tl.load(r_ptr + base + cols, mask=inb, other=0.0).to(tl.float32)
-    d = tl.load(d_ptr + base + cols, mask=inb, other=0.0).to(tl.float32)
+def _add_ln_rows(r_ptr, d_ptr, s_ptr, b_ptr, so_ptr, y_ptr, n_rows, eps,
+                 N_COLS: "tl.constexpr", BLOCK: "tl.constexpr",  # noqa: F821
+                 ROWS: "tl.constexpr"):  # noqa: F821
+    rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)[:, None]
+    cols = tl.arange(0, BLOCK)[None, :]
+    inc = cols < N_COLS
+    inb = (rows < n_rows) & inc
+    offs = rows.to(tl.int64) * N_COLS + cols
+    r = tl.load(r_ptr + offs, mask=inb, other=0.0).to(tl.float32)
+    d = tl.load(d_ptr + offs, mask=inb, other=0.0).to(tl.float32)
     # the sum in the stream dtype, as the unfused add rounds it
     s = (r + d).to(so_ptr.dtype.element_ty)
-    tl.store(so_ptr + base + cols, s, mask=inb)
+    tl.store(so_ptr + offs, s, mask=inb)
     x = s.to(tl.float32)
-    mean = tl.sum(x, axis=0) / n_cols
-    xc = tl.where(inb, x - mean, 0.0)
-    var = tl.sum(xc * xc, axis=0) / n_cols
+    mean = tl.sum(x, axis=1)[:, None] / N_COLS
+    xc = tl.where(inc, x - mean, 0.0)
+    var = tl.sum(xc * xc, axis=1)[:, None] / N_COLS
     rstd = tl.rsqrt(var + eps)
-    sc = tl.load(s_ptr + cols, mask=inb, other=0.0).to(tl.float32)
-    b = tl.load(b_ptr + cols, mask=inb, other=0.0).to(tl.float32)
+    sc = tl.load(s_ptr + cols, mask=inc, other=0.0).to(tl.float32)
+    b = tl.load(b_ptr + cols, mask=inc, other=0.0).to(tl.float32)
     y = xc * rstd * sc + b
-    tl.store(y_ptr + base + cols, y.to(y_ptr.dtype.element_ty), mask=inb)
+    tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=inb)
+
+
+_kernels = {}
 
 
 def _build(fn):
@@ -82,8 +112,24 @@ def _build(fn):
         import triton
         import triton.language as tl  # noqa: F811 — read by the kernels
 
-        _kernels[fn] = triton.jit(fn)
+        # n_rows changes between calls that share a compiled kernel
+        _kernels[fn] = triton.jit(fn, do_not_specialize=["n_rows"])
     return _kernels[fn]
+
+
+def _launch(fn, tensors, n_rows, c, eps):
+    """One launch of ``fn`` over ``n_rows`` rows of width ``c``; the
+    caller has checked that every tensor is a contiguous one on one
+    card. Triton launches on the current device; the device is switched
+    only when the tensors lie on another (the switch costs the host more
+    than the check)."""
+    if tensors[0].get_device() != torch.cuda.current_device():
+        with torch.cuda.device(tensors[0].device):
+            return _launch(fn, tensors, n_rows, c, eps)
+    block, rows_per, warps = launch_config(n_rows, c)
+    _build(fn)[(-(-n_rows // rows_per),)](
+        *tensors, n_rows, eps, N_COLS=c, BLOCK=block, ROWS=rows_per,
+        num_warps=warps)
 
 
 def _check(x, scale, bias, name):
@@ -122,11 +168,7 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     rows = x.numel() // c if c else 0
     if rows == 0:
         return y
-    block = 1 << (c - 1).bit_length()
-    kernel = _build(_ln_rows)
-    with torch.cuda.device(x.device):
-        kernel[(rows,)](x, scale, bias, y, c, eps, BLOCK=block,
-                        num_warps=4 if block <= 1024 else 8)
+    _launch(_ln_rows, (x, scale, bias, y), rows, c, eps)
     layer_norm.launches += 1
     return y
 
@@ -157,11 +199,7 @@ def add_layer_norm(res: torch.Tensor, delta: torch.Tensor,
     rows = res.numel() // c if c else 0
     if rows == 0:
         return s, y
-    block = 1 << (c - 1).bit_length()
-    kernel = _build(_add_ln_rows)
-    with torch.cuda.device(res.device):
-        kernel[(rows,)](res, delta, scale, bias, s, y, c, eps, BLOCK=block,
-                        num_warps=4 if block <= 1024 else 8)
+    _launch(_add_ln_rows, (res, delta, scale, bias, s, y), rows, c, eps)
     add_layer_norm.launches += 1
     return s, y
 

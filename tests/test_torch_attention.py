@@ -120,14 +120,15 @@ def test_kernel_binding_checks_before_any_build(dtype, error):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "v3"), (torch.bfloat16, 32, "v2"),
-    (torch.bfloat16, 16, "v2"), (torch.float32, 64, "f32"),
-    (torch.float32, 32, "f32"), (torch.float32, 16, "f32"),
+    (torch.bfloat16, 16, "v2"), (torch.float32, 64, "f32x3"),
+    (torch.float32, 32, "f32x3"), (torch.float32, 16, "f32x3"),
     (torch.float16, 64, TypeError), (torch.float64, 32, TypeError),
     (torch.bfloat16, 48, ValueError), (torch.bfloat16, 128, ValueError),
     (torch.float32, 8, ValueError)])
 def test_kernel_instance_by_dtype_and_head_dim(dtype, d, want):
     """bf16 at D = 64 runs v3 (wgmma), bf16 at D = 16 and 32 v2
-    (mma.sync), float32 the CUDA-core instance; anything else raises."""
+    (mma.sync), float32 at every head dim the 3xTF32 instance (wgmma at
+    D = 64, mma.sync at 16 and 32); anything else raises."""
     from dropclip_tpu_torch.kernels.attention import instance
 
     if isinstance(want, str):
@@ -144,6 +145,7 @@ def test_kernel_binding_imports_without_nvcc():
             "from dropclip_tpu_torch.kernels import attention as a\n"
             "from dropclip_tpu_torch.kernels.nvcc import LIBRARIES\n"
             "assert a.instance(torch.bfloat16, 64) == 'v3'\n"
+            "assert a.instance(torch.float32, 64) == 'f32x3'\n"
             "assert LIBRARIES['attention']._lib is None\n")
     env = dict(os.environ, NVCC="/nonexistent/nvcc", PATH="/usr/bin:/bin")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

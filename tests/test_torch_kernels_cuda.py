@@ -290,13 +290,19 @@ def test_k1_wrapper_raises_on_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("rows,c", [(308, 768), (77, 768), (5, 1000),
-                                    (3, 32), (769, 1024), (96, 1024)])
+                                    (3, 32), (769, 1024), (96, 1024),
+                                    (308, 512), (16130, 384), (1025, 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k6_matches_plain(cuda, rows, c, dtype):
     """float32: rtol 1e-5, atol 1e-5 (reduction order); bf16 in/out: at
-    most one bf16 ulp of the plain result. The 1024-wide rows are the
-    ViT-L teacher's (ln_pre and block 0's ln_1 over a crop's 769 tokens,
-    ln_post over 96 class tokens)."""
+    most one bf16 ulp of the plain result, the ulp taken at no less than
+    2^-10 above a million values (``chip_smoke.ln_close``'s rule: float32
+    reduction order can flip a value that cancels below 2^-13). The
+    1024-wide rows are the ViT-L teacher's (ln_pre and block 0's ln_1 over
+    a crop's 769 tokens, ln_post over 96 class tokens); (308, 512) is
+    RN50's text tower on 4 prompts (4 warps a row at so few rows), (16130,
+    384) DINO v1's rows at 512x512 and (1025, 384) the fewest rows of the
+    one-warp instance, its last program half empty."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = (torch.randn((rows, c), generator=gen, device=cuda) * 3
          + torch.randn((1, c), generator=gen, device=cuda)).to(dtype)
@@ -311,9 +317,28 @@ def test_k6_matches_plain(cuda, rows, c, dtype):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
     else:
         ref = ref.float()
-        ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(
-            torch.finfo(torch.float32).tiny))) - 7)
+        floor = (2.0 ** -10 if rows * c > 10 ** 6
+                 else torch.finfo(torch.float32).tiny)
+        ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(floor)))
+                      - 7)
         assert bool(((got.float() - ref).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("rows", [3026, 16130, 3027])
+def test_k6_at_dino_v1_rows(cuda, rows):
+    """K6 at DINO v1 S/8's float32 rows of 384 (224x224 and 512x512 at
+    stride 4) with its eps 1e-6, rtol 1e-5, atol 1e-5: a warp per row, two
+    rows a program, and 3027 rows leave the last program half empty."""
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x = torch.randn((rows, 384), generator=gen, device=cuda) * 3
+    s = 1 + 0.1 * torch.randn(384, generator=gen, device=cuda)
+    b = 0.1 * torch.randn(384, generator=gen, device=cuda)
+    before = layer_norm.launches
+    got = layer_norm(x, s, b, eps=1e-6)
+    ref = layer_norm_plain(x, s, b, eps=1e-6)
+    torch.cuda.synchronize()
+    assert layer_norm.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
 def _bf16_ulp(x):
@@ -442,11 +467,11 @@ def test_v3_keys_past_t_do_not_leak(cuda, t, causal):
     (torch.bfloat16, 64, "attention_kernel_v3"),
     (torch.bfloat16, 16, "attention_kernel<16>"),
     (torch.bfloat16, 32, "attention_kernel<32>"),
-    (torch.float32, 64, "attention_kernel_f32<64>"),
-    (torch.float32, 16, "attention_kernel_f32<16>")])
+    (torch.float32, 64, "attention_kernel_f32x3_wgmma"),
+    (torch.float32, 16, "attention_kernel_f32x3<16>")])
 def test_attention_shapes_reach_their_instance(cuda, dtype, d, kernel):
     """The profiler names the kernel that ran: v3 for bf16 at D = 64, v2
-    for bf16 at D = 16 and 32, the float32 instance for float32."""
+    for bf16 at D = 16 and 32, the 3xTF32 instance for float32."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -470,9 +495,10 @@ def test_attention_shapes_reach_their_instance(cuda, dtype, d, kernel):
                                             (2, 200, 8, 16, False),
                                             (1, 130, 4, 32, True)])
 def test_attention_float32_matches_plain(cuda, b, t, h, d, causal):
-    """The float32 instance (CUDA cores, no TF32): within 1e-5 of max|ref|
-    plus rtol 1e-4, the summation order and the online rescaling. K3 and
-    K4 give the same bits."""
+    """The float32 instance (3xTF32 against the plain version with TF32
+    off): within 1e-5 of max|ref| plus rtol 1e-4, the summation order, the
+    split's 21 bits and the online rescaling. K3 and K4 give the same
+    bits."""
     gen = torch.Generator(device="cuda").manual_seed(t + d)
     q, k, v = (torch.randn((b, t, h, d), generator=gen, device=cuda)
                for _ in range(3))
@@ -531,7 +557,8 @@ def test_attention_raises_on_what_it_does_not_take(cuda):
             (1, 8, 2 * 48), device=cuda, dtype=torch.bfloat16)] * 3, 2)
 
 
-@pytest.mark.parametrize("rows,c", [(96 * 769, 1024), (769, 1024), (3, 64)])
+@pytest.mark.parametrize("rows,c", [(96 * 769, 1024), (769, 1024), (3, 64),
+                                    (3026, 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k7_matches_plain(cuda, rows, c, dtype):
     """The sum is bit-equal (one rounding of the float32 sum to the
@@ -977,6 +1004,49 @@ def test_k5_float32_at_dino_v1_512_matches_plain(cuda):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, ref, rtol=1e-4,
                                atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("t", [3026, 4016])
+def test_k5_float32_at_dino_v1_matches_plain(cuda, t):
+    """K5's float32 instance at DINO v1 ViT-S/8's rows, stride 4: T = 3026
+    (224x224) and T = 4016 (``dino_extract`` at a short side of 224 on
+    480x640 frames), both ragged against the 64-key tiles. Within 1e-5 of
+    max|ref| plus rtol 1e-4."""
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    q, k, v = (torch.randn((1, t, 6, 64), generator=gen, device=cuda)
+               for _ in range(3))
+    n5 = att.flash_attention_padded.launches
+    got = att.flash_attention_padded(q, k, v)
+    ref = att.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert att.flash_attention_padded.launches == n5 + 1
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def test_k5_float32_wide_magnitudes(cuda):
+    """3xTF32 keeps float32 accuracy where 1xTF32 would not: logits of
+    spread 4 and values whose magnitudes span 1e-2 to 1e2 (log-uniform,
+    random sign) at DINO v1's heads. The kernel stays within the float32
+    limit (rtol 1e-4, atol 1e-5 * max|ref|); the plain version with its
+    products in TF32 (one rounding of each operand) leaves it."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape = (1, 1000, 6, 64)
+    q, k = (2 * torch.randn(shape, generator=gen, device=cuda)
+            for _ in range(2))
+    mag = 10.0 ** (torch.rand(shape, generator=gen, device=cuda) * 4 - 2)
+    v = mag * torch.randn(shape, generator=gen, device=cuda).sign()
+    got = att.flash_attention_padded(q, k, v)
+    ref = att.flash_attention_plain(q, k, v)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = att.flash_attention_plain(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    atol = 1e-5 * float(ref.abs().max())
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=atol)
+    assert not torch.allclose(tf32, ref, rtol=1e-4, atol=atol)
 
 
 def test_k4_at_dinov2_518_matches_plain(cuda):

@@ -1,6 +1,11 @@
 """K6 plain version (dropclip_tpu_torch.ops.layernorm) against the JAX
 LayerNorm: the jnp branch of ops.layernorm.layer_norm and the Pallas
-kernel itself in interpret mode."""
+kernel itself in interpret mode; K6's and K7's launch configuration, and
+the module on a machine without triton."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -93,3 +98,53 @@ def test_k7_plain_matches_pallas_interpret(dtype, rows, c):
         np.testing.assert_allclose(got_y, ref_y, rtol=1e-5, atol=1e-5)
     else:
         assert (np.abs(got_y - ref_y) <= _bf16_ulp(ref_y)).all()
+
+
+@pytest.mark.parametrize("c,want", [
+    (384, (512, 2, 1)),     # DINO v1 S/8: a warp per row, 2 rows a program
+    (768, (1024, 1, 4)),    # ViT-L/14's text tower
+    (1024, (1024, 1, 4)),   # ViT-L/14's vision tower, DINOv2-L
+    (512, (512, 2, 1)), (32, (32, 2, 1)), (1, (1, 2, 1)),
+    (513, (1024, 1, 4)), (1280, (2048, 1, 8))])
+def test_launch_config_by_width(c, want):
+    """(BLOCK, ROWS, num_warps) at DINO v1's 3026 rows (224x224): rows of
+    512 lanes or fewer go one warp each, two to a program; wider rows one
+    to a program of 4 warps (8 above 1024 lanes)."""
+    from dropclip_tpu_torch.ops.layernorm import launch_config
+
+    assert launch_config(3026, c) == want
+
+
+@pytest.mark.parametrize("n_rows,c,want", [
+    (4 * 77, 512, (512, 1, 4)),     # RN50's text tower on 4 prompts
+    (4 * 77, 768, (1024, 1, 4)),    # ViT-L/14's text tower on 4 prompts
+    (1023, 384, (512, 1, 4)), (1024, 384, (512, 2, 1)),
+    (16130, 384, (512, 2, 1)),      # DINO v1 S/8 at 512x512
+    (96 * 769, 1024, (1024, 1, 4)),  # the ViT-L teacher's 96 crops
+    (1, 1, (1, 1, 4))])
+def test_launch_config_by_rows(n_rows, c, want):
+    """Below 1024 rows a narrow row keeps a program of 4 warps: the
+    one-warp programs would leave most of the card's SMs idle."""
+    from dropclip_tpu_torch.ops.layernorm import launch_config
+
+    assert launch_config(n_rows, c) == want
+
+
+def test_module_runs_without_triton():
+    """With triton absent the module imports, picks its launch
+    configuration and runs both plain versions on CPU tensors, building
+    and compiling nothing."""
+    code = ("import sys\n"
+            "sys.modules['triton'] = None\n"
+            "import torch\n"
+            "from dropclip_tpu_torch.ops import layernorm as ln\n"
+            "assert ln.launch_config(3026, 384) == (512, 2, 1)\n"
+            "x = torch.randn(5, 384)\n"
+            "s, b = torch.ones(384), torch.zeros(384)\n"
+            "ln.layer_norm(x, s, b)\n"
+            "ln.add_layer_norm(x, x, s, b)\n"
+            "assert not ln._kernels\n"
+            "assert ln.layer_norm.launches == ln.add_layer_norm.launches == 0\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                   timeout=120)
