@@ -109,7 +109,31 @@
    with ViT-L/14@336px (cls, patch, tiled) and RN50 (patch; cls and
    tiled raise); one ingest chunk on the per-view prompt path against
    the packed route; profiles of one forward of each teacher;
-9. prints the ``kernels`` JSON line, the card line and, last,
+9. raw datasets (after the eval path's run_eval, before the teachers):
+   a raw MV-TOD scene at the published shape (73 views 480x640, 10
+   objects, RLE masks, .npy depth) written by ``write_fake_raw_blender``
+   and read through ``BlenderDataset`` (read and RLE decode timed, the
+   RLE route printed), ``run_blender`` in process with the .npz writer
+   and the ingest teacher (K3 24, K7 47, K6 3 per chunk + 25), its scene
+   against ``process_scene`` on the generator's arrays (planted fault:
+   two hex colours swapped); ``run_eval -ds Blender`` in both fusion
+   modes; raw REGRAD scenes (9 views at 840x840, 10 objects, 20000
+   points a view) through ``run_regrad`` (patch batch K3 23, K7 45, K6
+   4; obj-prior chunks as ingest); the MV-TOD trainer for 3 steps with
+   ``use_view_clip`` (774-wide stem; K1 32 per step, the patch teacher
+   per cache miss); a reduced REGRAD scene and one view's features card
+   (bf16) against CPU (float32) at cosine >= 0.999 (planted faults: the
+   camera flip, the y flip left out); K1's forward and dgrad at the
+   REGRAD trainer's (2, 2, 2) bricks on its batch's topology against the
+   plain version (planted fault: dgrad taps not mirrored), the batch's
+   grid dropping nothing; ``train_distil`` under
+   configs/DistilREGRAD.yaml at its recipe but for the bricks (batch 16,
+   3 steps, grounding eval on REGRAD queries; K1 32 per step, 16 per val
+   batch; nothing dropped); then
+   ``make_visualizations`` with ``viz_query`` on its checkpoint (K1 16 per
+   forward, K6 25 per text encode) and every grasp ranking card against
+   CPU (planted fault: the radius compared unsquared);
+10. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero. Without a CUDA card the
@@ -117,14 +141,17 @@ script exits non-zero before printing any result. A JSON report with every
 number goes to ``chiprun_out/chip_smoke_report.json``.
 """
 
+import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import torch
@@ -2346,8 +2373,6 @@ def train_cli_phase(report):
     1. The checkpoints (0.7 GB each: weights and AMSGrad moments) go to
     build/; the eval phase reads the first run's and deletes them. Returns
     (dataset dir, first run's checkpoint dir, checkpoints root)."""
-    import shutil
-
     from dropclip_tpu_torch.core.checkpoint import restore_checkpoint
     from dropclip_tpu_torch.data.synthetic import write_fake_processed_dataset
 
@@ -2927,8 +2952,6 @@ def serve_ckpt_phase(data, ckpt, clip_path, report):
 def viz_phase(data, ckpt, report):
     """``tools.make_visualizations`` on the trainer's checkpoint (2 val
     scenes): its files written, one .pcd read back through load_pcd."""
-    import shutil
-
     from dropclip_tpu_torch.tools import make_visualizations
     from dropclip_tpu_torch.viz import load_pcd
 
@@ -2954,8 +2977,6 @@ def eval_phase(cfg, cli, report):
     file, validation, serving from the checkpoint, viz. Deletes the
     checkpoints and the file afterwards. Returns (K1, K6) launches of the
     in-process validation."""
-    import shutil
-
     data, ckpt, saves = cli
     clip_path = None
     try:
@@ -2968,6 +2989,810 @@ def eval_phase(cfg, cli, report):
         if clip_path:
             os.remove(clip_path)
     return launches
+
+
+# ---- the raw datasets: the MV-TOD and REGRAD readers, their ingest,
+# use_view_clip and REGRAD training, language-ranked grasps ----
+
+RAW_DIR = os.path.join(ROOT, "build", "raw")
+RAW_SEED = 11
+# the raw MV-TOD scene at the published shape (the ingest phase's scene)
+RAW_VIEWS, RAW_HW, RAW_OBJECTS, RAW_POINTS = 73, (480, 640), 10, 400
+# a raw REGRAD scene: 9 views at the ingest's default intrinsics (cx = cy
+# = 420), 10 objects of 2000 points, so 20000 points per view cloud
+REGRAD_HW, REGRAD_OBJECTS, REGRAD_POINTS = (840, 840), 10, 2000
+REGRAD_VOXEL = 0.001  # the ingest's voxel pooling, m: the recipe's voxel
+REGRAD_COS = 0.999  # card bf16 vs CPU float32: patch and per_obj rows
+VIEW_CLIP_COS = 0.999  # card bf16 vs CPU float32: per-point view features
+VIEW_CLIP_VIEWS = 24  # single views of the MV-TOD trainer: 3 steps of 8
+RANK_TOL = 1e-5  # grasp scores, card vs CPU, of max|score|
+RANK_RADIUS = 0.05
+
+
+class Recorder:
+    """A ``write=`` seam: calls ``write`` (None: nothing on disk) and
+    keeps each scene's arrays by path."""
+
+    def __init__(self, write=None):
+        self.write, self.scenes = write, {}
+
+    def __call__(self, path, **arrays):
+        if self.write is not None:
+            self.write(path, **arrays)
+        self.scenes[path] = arrays
+
+
+def raw_args(**kw):
+    """``tools/preprocess_data``'s arguments (its defaults, .npz files)."""
+    return SimpleNamespace(**{
+        **dict(clip_model="ViT-L/14@336px", clip_checkpoint=None,
+               visual_prompt="crop-mask", crop_num_levels=1,
+               crop_expansion_ratio=0.15, batch_size=32, models_root=None,
+               split="train", start=0, end=-1, format="npz", device="cuda",
+               reader_config=os.path.join(ROOT, "configs", "REGRAD.yaml")),
+        **kw})
+
+
+def teacher_want(chunks, batches, texts=0):
+    """Launches of ``chunks`` obj-prior chunks, ``batches`` patch batches
+    and ``texts`` text encodes."""
+    per = {k: TEACHER_LAUNCHES[1][k] * chunks + TEACHER_LAUNCHES[0][k]
+           * batches for k in ("K3", "K6", "K7")}
+    per["K6"] += 25 * texts
+    return {**per, "K4": 0, "K5": 0}
+
+
+def row_cos(a, b):
+    """Min cosine of matched rows (float64)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    cos = (a * b).sum(-1) / np.maximum(
+        np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1), 1e-30)
+    return float(cos.min()) if len(cos) else 1.0
+
+
+def mvtod_raw_phase(extractor, report):
+    """A raw MV-TOD scene at the published shape (73 views 480x640, 10
+    objects, RLE masks, .npy depth) written by ``write_fake_raw_blender``,
+    read through ``BlenderDataset`` (read and RLE decode timed), then
+    ``run_blender`` in process with the .npz writer and the ingest
+    phase's teacher (K3 24, K7 47, K6 3 per chunk + 25 for the queries);
+    its scene against ``process_scene`` on the generator's arrays
+    without the reader (xyz within INGEST_XYZ, labels equal, fused rows at
+    cosine >= INGEST_COS); planted fault: two objects' hex colours
+    swapped in ``col_to_ins``, which the label check must see. Returns
+    (launches, raw root, processed root)."""
+    from dropclip_tpu_torch import native
+    from dropclip_tpu_torch.data import blender, scene_io
+    from dropclip_tpu_torch.data.synthetic import (make_raw_scene,
+                                                   write_fake_raw_blender)
+    from dropclip_tpu_torch.tools import preprocess_data as pre
+
+    root = os.path.join(RAW_DIR, "mvtod")
+    proc = os.path.join(RAW_DIR, "mvtod_proc")
+    for d in (root, proc):
+        shutil.rmtree(d, ignore_errors=True)
+    t = time.time()
+    write_fake_raw_blender(root, n_scenes=1, n_objects=RAW_OBJECTS,
+                           n_views=RAW_VIEWS, hw=RAW_HW, seed=RAW_SEED,
+                           n_points_per_obj=RAW_POINTS)
+    t_write = time.time() - t
+    decode = [0.0, 0]
+    inner = blender.anno_to_mask
+
+    def timed_decode(*a):
+        t0 = time.perf_counter()
+        out = inner(*a)
+        decode[0] += time.perf_counter() - t0
+        decode[1] += 1
+        return out
+
+    ds = blender.BlenderDataset(root)
+    with mock.patch.object(blender, "anno_to_mask", timed_decode):
+        t = time.time()
+        scene = ds[0]
+        t_read = time.time() - t
+    print(f"raw MV-TOD scene ({RAW_VIEWS} views {RAW_HW[0]}x{RAW_HW[1]}, "
+          f"{RAW_OBJECTS} objects): written in {t_write:.2f} s, read in "
+          f"{t_read:.3f} s, of which RLE decode {decode[0]:.3f} s for "
+          f"{decode[1]} masks; RLE codec {native.route()}", flush=True)
+    raw = make_raw_scene(np.random.default_rng(RAW_SEED),
+                         n_objects=RAW_OBJECTS, n_points_per_obj=RAW_POINTS,
+                         n_views=RAW_VIEWS, hw=RAW_HW)
+    views = list(scene["views"].values())
+    segs = np.stack(blender.BlenderDataset.obtain_seg_info(scene)[0])
+    check(np.array_equal(np.stack([v["rgb"] for v in views]), raw["images"])
+          and np.array_equal(np.stack([v["depth"] for v in views]),
+                             raw["depths"])
+          and np.array_equal(segs, raw["segs"]),
+          "the reader's arrays differ from the written scene's")
+
+    rec = Recorder(scene_io.write_scene)
+    # the ingest phase's 5 mm: run_blender scales by the scene's
+    # base_scale (10 in the writer's objects.init)
+    args = raw_args(root=root, out=proc, voxel_size=0.005 / 10.0)
+    chunks0 = extractor.chunks
+    with mock.patch.object(pre, "build_extractor",
+                           lambda a, device=None: extractor), \
+            Launches() as counted:
+        results = pre.run_blender(args, write=rec)
+    chunks = extractor.chunks - chunks0
+    check(len(results) == 1, f"run_blender results {results}")
+    path, stats = results[0]
+    got = rec.scenes[path]
+    want = teacher_want(chunks, 0, texts=1)
+    print(f"run_blender (in process, .npz): {counted.wall:.3f} s wall; "
+          f"{stats}; {chunks} chunks, launches {counted.n}", flush=True)
+    check(counted.n == want, f"run_blender launches {counted.n}, want "
+          f"{want}")
+    check(stats["points"] > 0 and stats["dropped"] == 0,
+          f"run_blender stats {stats}")
+
+    def direct(seg_stack):
+        r = Recorder()
+        pre.process_scene(images=raw["images"], depths=raw["depths"],
+                      segs=seg_stack, poses=raw["poses"],
+                      K=pre._intrinsic_matrix(scene["camera_intrinsic"]),
+                      obj_info=scene["objects_info"], extractor=extractor,
+                      out_path="direct", voxel_size=0.005, write=r)
+        return r.scenes["direct"]
+
+    ref = direct(raw["segs"])
+    same = (got["xyz"].shape == ref["xyz"].shape
+            and np.array_equal(got["label"], ref["label"]))
+    xyz_d = (float(np.abs(got["xyz"] - ref["xyz"]).max()) if same
+             else float("inf"))
+    cos = row_cos(got["obj_feats"], ref["obj_feats"])
+    # planted fault: objects 1 and 2 swap colours in the reader's table
+    bad = dict(scene, col_to_ins=dict(scene["col_to_ins"]))
+    h1, h2 = (scene["objects_info"][k]["hex_id"] for k in (1, 2))
+    bad["col_to_ins"][h1], bad["col_to_ins"][h2] = (
+        bad["col_to_ins"][h2], bad["col_to_ins"][h1])
+    fault = direct(np.stack(blender.BlenderDataset.obtain_seg_info(bad)[0]))
+    fault_same = (fault["label"].shape == ref["label"].shape
+                  and np.array_equal(fault["label"], ref["label"]))
+    print(f"run_blender vs process_scene on the generator's arrays: points "
+          f"{len(got['xyz'])} / {len(ref['xyz'])}, labels equal {same}, "
+          f"xyz max |d| {xyz_d:.3e}, fused rows min cosine {cos:.6f}; "
+          f"planted fault (two hex colours swapped): labels equal "
+          f"{fault_same}", flush=True)
+    check(same and xyz_d <= INGEST_XYZ and cos >= INGEST_COS,
+          "run_blender's scene differs from process_scene's")
+    check(not fault_same, "the label check does not see two objects' "
+          "colours swapped")
+    report["raw_mvtod"] = dict(
+        write_s=t_write, read_s=t_read, rle_decode_s=decode[0],
+        masks=decode[1], rle_route=native.route(), wall_s=counted.wall,
+        stats=stats, chunks=chunks, launches=counted.n, xyz_max=xyz_d,
+        min_cos=cos, fault_labels_equal=fault_same)
+    return counted.n, root, proc
+
+
+def raw_run_eval_phase(extractor, root, report):
+    """``tools.run_eval -ds Blender`` on the raw tree in both fusion modes
+    (in process, the ingest phase's teacher): per mode, launches from the
+    counters against the chunks, patch batches and text encodes."""
+    from dropclip_tpu_torch.tools import run_eval
+
+    total, rows = dict(K3=0, K6=0, K7=0), {}
+    for mode, tag in ((1, "obj_prior"), (0, "patch")):
+        argv = ["-ds", "Blender", "-r", root, "--voxel_size", "0.005",
+                "--cloud_capacity", str(INGEST_CAPACITY),
+                "--use_obj_prior", str(mode)]
+        chunks0 = extractor.chunks
+        with mock.patch.object(run_eval, "build_extractor",
+                               lambda a, device=None: extractor), \
+                mock.patch.object(extractor.model, "encode_text",
+                                  wraps=extractor.model.encode_text) as enc, \
+                Launches() as counted:
+            summary = run_eval.main(argv)
+        texts = enc.call_count
+        chunks = extractor.chunks - chunks0
+        batches = 0 if mode else -(-RAW_VIEWS // extractor.batch_size)
+        want = teacher_want(chunks, batches, texts)
+        print(f"run_eval -ds Blender {tag}: {counted.wall:.3f} s wall; "
+              f"{summary['mean']}; {chunks} chunks, {batches} patch "
+              f"batches, {texts} text encodes, launches {counted.n}",
+              flush=True)
+        check(counted.n == want, f"run_eval -ds Blender {tag}: launches "
+              f"{counted.n}, want {want}")
+        check(summary["n_scenes"] == 1 and texts > 1 and all(
+            np.isfinite(v) for v in summary["mean"].values()),
+            f"run_eval -ds Blender {tag}: {summary}")
+        rows[tag] = dict(wall_s=counted.wall, mean=summary["mean"],
+                         launches=counted.n, text_encodes=texts)
+        for k in total:
+            total[k] += counted.n[k]
+    report["raw_run_eval"] = rows
+    return total
+
+
+def regrad_reader_cfg(root):
+    from dropclip_tpu_torch.core.config import load_cfg, merge_cfg_from_list
+
+    cfg = load_cfg(os.path.join(ROOT, "configs", "REGRAD.yaml"))
+    cfg = merge_cfg_from_list(cfg, ["root_dir", root])
+    cfg.reference_frame = "world"
+    return cfg
+
+
+def regrad_ingest_phase(extractor, report):
+    """Raw REGRAD scenes (9 views at 840x840, 10 objects, 20000 points a
+    view cloud; 3 train, 1 seen_val) through ``run_regrad`` in process
+    with the .npz writer and the ingest phase's teacher (patches: one
+    batch of 9, K3 23, K7 45, K6 4; class tokens of the present pairs: K3
+    24, K7 47, K6 3 a chunk). Returns (launches, raw root, processed
+    root, {split: scene ids})."""
+    from dropclip_tpu_torch.data import scene_io
+    from dropclip_tpu_torch.data.synthetic import write_fake_raw_regrad
+    from dropclip_tpu_torch.tools import preprocess_data as pre
+
+    root = os.path.join(RAW_DIR, "regrad")
+    proc = os.path.join(RAW_DIR, "regrad_proc")
+    for d in (root, proc):
+        shutil.rmtree(d, ignore_errors=True)
+    t = time.time()
+    sids = {split: write_fake_raw_regrad(
+        root, n_scenes=n, n_objects=REGRAD_OBJECTS, n_views=9,
+        points_per_obj=REGRAD_POINTS, hw=REGRAD_HW, split=split, seed=seed)
+        for split, n, seed in (("train", 3, 0), ("seen_val", 1, 1))}
+    print(f"raw REGRAD scenes written in {time.time() - t:.2f} s", flush=True)
+    total, rows = dict(K3=0, K6=0, K7=0), {}
+    for split in sids:
+        rec = Recorder(scene_io.write_regrad_scene)
+        chunks0 = extractor.chunks
+        with mock.patch.object(pre, "build_extractor",
+                               lambda a, device=None: extractor), \
+                Launches() as counted:
+            results = pre.run_regrad(raw_args(root=root, out=proc,
+                                              split=split,
+                                              voxel_size=REGRAD_VOXEL),
+                                     write=rec)
+        chunks = extractor.chunks - chunks0
+        want = teacher_want(chunks, len(results))
+        for sid, st in results:
+            print(f"run_regrad {split} {sid}: {st}", flush=True)
+            check(st["views"] == 9 and st["objects"] == REGRAD_OBJECTS
+                  and st["points"] > REGRAD_OBJECTS * REGRAD_POINTS // 4,
+                  f"run_regrad {sid}: {st}")
+        for arrays in rec.scenes.values():
+            check(np.isfinite(arrays["patch"]).all()
+                  and np.isfinite(arrays["per_obj"]).all(),
+                  "run_regrad wrote non-finite features")
+        print(f"run_regrad {split}: {len(results)} scenes in "
+              f"{counted.wall:.3f} s; {chunks} chunks; launches "
+              f"{counted.n}", flush=True)
+        check(len(results) == len(sids[split]) and counted.n == want,
+              f"run_regrad {split}: launches {counted.n}, want {want}")
+        rows[split] = dict(wall_s=counted.wall, chunks=chunks,
+                           launches=counted.n,
+                           scenes={s: st for s, st in results})
+        for k in total:
+            total[k] += counted.n[k]
+    report["raw_regrad_ingest"] = rows
+    return total, root, proc, sids
+
+
+def view_clip_train_phase(extractor, mvtod_root, mvtod_proc, report):
+    """The MV-TOD trainer (configs/DistilBlender.yaml: MinkUNet14D,
+    batch 8) for 3 steps with ``use_view_clip`` on single views of the
+    ingested scene, ``raw_root`` the raw tree: the student's stem 774
+    wide, the patch teacher the ingest phase's (the same seeded ViT-L/14@
+    336px the dataset would build). K1 32 per step; K3 23, K7 45, K6 4 per
+    patch-map miss. Returns (K1 launches, K3-K7 launches)."""
+    from dropclip_tpu_torch.data import build_dataset_for
+    from dropclip_tpu_torch.kernels.brick_conv3 import counter
+    from dropclip_tpu_torch.teachers import convert
+    from dropclip_tpu_torch.tools import train_distil
+
+    saves = os.path.join(RAW_DIR, "view_clip_ckpt")
+    made = []
+
+    def capture(cfg, device=None):
+        out = build_dataset_for(cfg, device)
+        made.append(out[0])
+        return out
+
+    argv = ["--config", os.path.join(ROOT, "configs", "DistilBlender.yaml"),
+            "--opts", "root_dir", mvtod_proc, "raw_root", mvtod_root,
+            "use_view_clip", "True", "use_k_views", "0", "use_view_ids",
+            # quoted: --opts would read "0,1,..." as a tuple literal
+            repr(",".join(str(v) for v in range(VIEW_CLIP_VIEWS))),
+            "voxel_size", "0.005", "evaluate", "False", "epochs", "1",
+            "print_freq", "1", "save_path", saves]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with mock.patch.object(train_distil, "build_dataset_for", capture), \
+                mock.patch.object(convert, "build_clip_from",
+                                  lambda *a, **k: extractor.model), \
+                Launches() as counted:
+            counter.launches = 0
+            ckpt = train_distil.main(argv)
+            k1 = counter.launches
+        with open(os.path.join(ckpt, "train.log")) as f:
+            log = f.read()
+    finally:
+        shutil.rmtree(saves, ignore_errors=True)
+    ds = made[0]
+    misses = ds.vc_misses
+    steps = [float(x) for x in re.findall(r"Batch ([0-9.]+) \(", log)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = teacher_want(0, misses)
+    print(f"use_view_clip training (3 steps of 8 single views, MinkUNet14D "
+          f"stem {ds[0]['in_feats'].shape[-1]} wide): {counted.wall:.1f} s "
+          f"wall, steps {steps} s, peak {peak:.2f} GiB; K1 {k1}; "
+          f"{misses} patch-map misses, launches {counted.n}", flush=True)
+    check(k1 == 32 * 3, f"use_view_clip training: K1 {k1}, want 96")
+    check(counted.n == want and misses == VIEW_CLIP_VIEWS,
+          f"use_view_clip training: launches {counted.n} over {misses} "
+          f"misses, want {want}")
+    check(len(steps) == 3 and "dropped by brick" not in log,
+          f"use_view_clip training: steps {steps}, or voxels dropped")
+    report["view_clip_train"] = dict(wall_s=counted.wall, steps_s=steps,
+                                     peak_gib=peak, k1=k1, misses=misses,
+                                     launches=counted.n)
+    return k1, counted.n
+
+
+def raw_phase(extractor, report):
+    """The raw datasets' paths that run the ingest teacher. Returns the
+    state the later raw phases take."""
+    t = time.time()
+    n1, mvtod_root, mvtod_proc = mvtod_raw_phase(extractor, report)
+    n2 = raw_run_eval_phase(extractor, mvtod_root, report)
+    n3, regrad_root, regrad_proc, sids = regrad_ingest_phase(extractor,
+                                                             report)
+    k1, n4 = view_clip_train_phase(extractor, mvtod_root, mvtod_proc,
+                                   report)
+    secs = time.time() - t
+    print(f"raw datasets, teacher part: {secs:.1f} s", flush=True)
+    return dict(seconds=secs, k1=k1,
+                n={k: n1[k] + n2[k] + n3[k] + n4[k]
+                   for k in ("K3", "K6", "K7")},
+                mvtod_root=mvtod_root, regrad_root=regrad_root,
+                regrad_proc=regrad_proc, sids=sids)
+
+
+def no_flip_pixels(xyz, pose, K, hw):
+    """``preprocess_data._pixels`` without the REGRAD camera flip (the
+    planted fault)."""
+    from dropclip_tpu_torch.geom.transforms import \
+        transform_pointcloud_to_camera_frame
+
+    cam = transform_pointcloud_to_camera_frame(
+        torch.as_tensor(xyz, dtype=torch.float32),
+        torch.as_tensor(pose, dtype=torch.float32)).numpy()
+    uvw = cam @ K.T
+    z = np.where(np.abs(uvw[:, 2]) < 1e-9, 1e-9, uvw[:, 2])
+    uv = uvw[:, :2] / z[:, None]
+    return (np.clip(uv[:, 1].astype(int), 0, hw[0] - 1),
+            np.clip(uv[:, 0].astype(int), 0, hw[1] - 1))
+
+
+def two_layer_teachers():
+    """ViT-L/14@336px cut to 2 vision layers at full width, the same
+    seeded weights: bf16 on the card, float32 on the CPU."""
+    from dropclip_tpu_torch.teachers.clip import build_clip
+    from dropclip_tpu_torch.teachers.extractor import ClipExtractor
+
+    return {dev: ClipExtractor(build_clip(
+        "ViT-L/14@336px", dtype=dt, generator=torch.Generator().manual_seed(
+            SEED), device=dev, vision_layers=2), chunk=16)
+        for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32))}
+
+
+def regrad_cpu_phase(teachers, report):
+    """A reduced REGRAD scene (3 views at 168x168, 4 objects of 300
+    points) through ``process_regrad_scene`` on the card (bf16) and the
+    CPU (float32), 2-layer ViT-L: xyz, labels and object ids equal, patch
+    and per_obj rows at cosine >= REGRAD_COS; planted fault: the camera's
+    y/z flip left out, which must empty or change the kept set."""
+    from dropclip_tpu_torch.data.regrad import RegradDataset
+    from dropclip_tpu_torch.data.synthetic import write_fake_raw_regrad
+    from dropclip_tpu_torch.tools import preprocess_data as pre
+
+    root = os.path.join(RAW_DIR, "regrad_reduced")
+    shutil.rmtree(root, ignore_errors=True)
+    K = np.array([[224.0, 0, 84], [0, 224.0, 84], [0, 0, 1]], np.float32)
+    write_fake_raw_regrad(root, n_scenes=1, n_objects=4, n_views=3,
+                          points_per_obj=300, hw=(168, 168), K=K, seed=2)
+    ds = RegradDataset(regrad_reader_cfg(root), "train")
+    scene = ds[0]
+    poses = {v: np.asarray(ds.camera_info["extrinsic"][v])
+             for v in range(1, 10)}
+    K = pre.regrad_intrinsics(ds.camera_info)
+    out = {}
+    for dev, ex in teachers.items():
+        rec = Recorder()
+        stats = pre.process_regrad_scene(scene, poses, K, ex, dev,
+                                         REGRAD_VOXEL, write=rec)
+        out[dev] = (stats, rec.scenes[dev])
+    (sg, g), (sc, c) = out["cuda"], out["cpu"]
+    equal = all(g[k].shape == c[k].shape and np.array_equal(g[k], c[k])
+                for k in ("xyz", "label", "obj_ids"))
+    cos = {k: row_cos(g[k], c[k]) if equal else -1.0
+           for k in ("patch", "per_obj")}
+    with mock.patch.object(pre, "_pixels", no_flip_pixels):
+        rec = Recorder()
+        fs = pre.process_regrad_scene(scene, poses, K, teachers["cpu"],
+                                      "fault", REGRAD_VOXEL, write=rec)
+    fault = rec.scenes.get("fault")
+    fault_same = fault is not None and fault["xyz"].shape == \
+        c["xyz"].shape and np.array_equal(fault["xyz"], c["xyz"])
+    print(f"REGRAD card vs CPU (3 views 168x168, 4 objects, 2-layer ViT-L, "
+          f"bf16 vs float32): points {sg['points']} / {sc['points']}, xyz, "
+          f"labels and ids equal {equal}, min cosine {cos}; planted fault "
+          f"(no y/z flip): {fs}, kept set equal {fault_same}", flush=True)
+    check(equal and min(cos.values()) >= REGRAD_COS,
+          "REGRAD ingest card vs CPU outside its tolerances")
+    check(not fault_same, "the kept-set check does not see the camera "
+          "flip left out")
+    report["raw_regrad_card_vs_cpu"] = dict(points=[sg["points"],
+                                                    sc["points"]],
+                                            equal=equal, min_cos=cos,
+                                            fault=fs, limit=REGRAD_COS)
+
+
+def view_clip_cpu_phase(teachers, mvtod_root, report):
+    """Per-point view features of one MV-TOD view (``_view_clip_features``
+    of the dataset) on the card (bf16) and the CPU (float32), 2-layer
+    ViT-L, at cosine >= VIEW_CLIP_COS; planted fault: the y flip left out
+    of the projection, which the limit must see."""
+    from dropclip_tpu_torch.core.config import CfgNode
+    from dropclip_tpu_torch.data import dataset_blender
+    from dropclip_tpu_torch.data.scene_io import read_scene
+
+    proc = os.path.join(RAW_DIR, "mvtod_proc")
+    pts = read_scene(os.path.join(proc, "train", "000000",
+                                  "000000.npz")).xyz
+    cfg = CfgNode(dict(root_dir=proc, raw_root=mvtod_root, use_view_clip=True,
+                       use_k_views=0, use_view_ids="5", use_full_pc=False))
+    feats = {}
+    for dev, ex in teachers.items():
+        ex.set_mode("patch")
+        ds = dataset_blender.MVTODDataset(cfg, "train", device=dev)
+        ds._vc_extractor = ex
+        feats[dev] = ds._view_clip_features(pts, "000000", 5)
+    cos = row_cos(feats["cuda"], feats["cpu"])
+    inner = dataset_blender.view_clip_pixels
+
+    def no_y_flip(xyz, pose, K, hw):
+        # a pose with its y axis negated: its inverse negates the camera's
+        # y, which the flip then undoes
+        return inner(xyz, pose @ np.diag([1.0, -1.0, 1.0, 1.0]), K, hw)
+
+    with mock.patch.object(dataset_blender, "view_clip_pixels", no_y_flip):
+        fault = row_cos(ds._view_clip_features(pts, "000000", 5),
+                        feats["cpu"])
+    print(f"view features card vs CPU ({len(pts)} points, view 5, 2-layer "
+          f"ViT-L, bf16 vs float32): min cosine {cos:.6f}; planted fault "
+          f"(no y flip): {fault:.6f}", flush=True)
+    check(cos >= VIEW_CLIP_COS, "view features card vs CPU below the limit")
+    check(fault < VIEW_CLIP_COS, "the limit does not see the y flip left out")
+    report["view_clip_card_vs_cpu"] = dict(min_cos=cos, fault_cos=fault,
+                                           limit=VIEW_CLIP_COS)
+
+
+def regrad_train_data(proc, raw_root, sids):
+    """The trainer's REGRAD tree: each ingested scene linked 16 times into
+    train (48 scenes: 3 steps of 16) and 4 times into seen_val (2 val
+    batches of 2), with the object lists of the copies. Returns (tree,
+    objects json of train, of seen_val)."""
+    data = os.path.join(RAW_DIR, "regrad_train")
+    shutil.rmtree(data, ignore_errors=True)
+    paths = {}
+    for split, copies, src in (("train", 16, "objects_single.json"),
+                               ("seen_val", 4, "objects_refer_test.json")):
+        os.makedirs(os.path.join(data, split))
+        with open(os.path.join(raw_root, src)) as f:
+            objs = json.load(f)
+        out = {}
+        for sid in sids[split]:
+            for j in range(copies):
+                name = f"{sid}c{j:02d}"
+                os.symlink(os.path.join(proc, split, f"{sid}.npz"),
+                           os.path.join(data, split, f"{name}.npz"))
+                out[name] = objs[sid]
+        paths[split] = os.path.join(data, f"objects_{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(out, f)
+    return data, paths["train"], paths["seen_val"]
+
+
+def regrad_opts(state):
+    """The trainer's and viz's --opts on the REGRAD tree. Bricks of
+    (2, 2, 2): at the recipe's 1 mm voxels a 10000-point sample of
+    surfaces fills about 2 of the 32 cells of a (4, 4, 2) brick, and
+    that layout needs more than the card's 80 GB at batch 16, remat or
+    not (PERF.md, the raw datasets)."""
+    data, train_objs, val_objs = state["regrad_train"]
+    return ["processed_dir", data, "objects_train_path", train_objs,
+            "objects_val_path", val_objs, "cls_map_path",
+            os.path.join(state["regrad_root"], "cls_map.json"),
+            "clip_checkpoint", "random", "brick_shape", "[2, 2, 2]"]
+
+
+def plain_by_scenes(x, dy, lv, w, scenes, budget=2 ** 33):
+    """K1's plain version and autograd of it (dgrad on the occupied
+    voxels) on a folded level of ``scenes`` scenes, computed a few scenes
+    at a time: no neighbour row leaves its scene's block of rows, so each
+    group is a level of its own (misses renumbered to its zero row), and
+    the plain version's unfolded patches of a group stay within
+    ``budget`` bytes. Returns (forward, dgrad) for the whole level."""
+    from dropclip_tpu_torch.kernels.brick_conv3 import brick_conv3_plain
+
+    bm = lv.occ.shape[0]
+    cap, voxels = bm // scenes, lv.occ[0].numel()
+    per = max(1, budget // (cap * voxels * 27 * max(x.shape[-1],
+                                                    dy.shape[-1]) * 4))
+    ref, gref = torch.empty_like(dy), torch.empty_like(x)
+    for s0 in range(0, scenes, per):
+        r0, r1 = s0 * cap, min(scenes, s0 + per) * cap
+        nbr = lv.nbr[r0:r1].long()
+        nbr = torch.where(nbr >= bm, r1 - r0, nbr - r0)
+        xs = x[r0:r1].clone().requires_grad_()
+        out = brick_conv3_plain(xs, nbr, w, lv.occ[r0:r1])
+        (g,) = torch.autograd.grad(out, xs, dy[r0:r1])
+        ref[r0:r1] = out.detach()
+        gref[r0:r1] = g * lv.occ[r0:r1, ..., None]
+        del xs, out, g
+    return ref, gref
+
+
+def regrad_k1_phase(state, report):
+    """K1 at the REGRAD trainer's layout, (2, 2, 2) bricks, which no other
+    phase holds: the topology of the trainer's batch (its first 16 train
+    scenes, augmented, at 1 mm, capacities autotuned as the trainer does,
+    on the grid ``build_topology`` picks, which must drop nothing),
+    folded; at each of MinkUNet14D's 16 k3 convs, seeded features on the
+    level's occupancy and He-scaled weights in float32 (the trainer's
+    dtype), K1's forward and its dgrad (K1 on ``dY * occ`` with
+    ``mirror_taps``, the level's row schedule, as ``BrickConv3Fn`` runs
+    them) against ``brick_conv3_plain`` and autograd of it on the occupied
+    voxels (``plain_by_scenes``), within ``k1_close``; planted fault: the
+    dgrad's taps transposed but not mirrored, which must fall outside
+    it."""
+    import logging
+
+    from dropclip_tpu_torch.data import build_dataset_for
+    from dropclip_tpu_torch.distill.engine import (brick_shape_of,
+                                                   build_student_for,
+                                                   build_topology)
+    from dropclip_tpu_torch.kernels import brick_conv3 as k1
+    from dropclip_tpu_torch.sparse.bricks import (build_brick_topology,
+                                                  fold_topology,
+                                                  grid_bits_for)
+    from dropclip_tpu_torch.tools import train_distil
+
+    t = time.time()
+    cfg, device = train_distil.get_parser(
+        ["--config", os.path.join(ROOT, "configs", "DistilREGRAD.yaml"),
+         "--opts", *regrad_opts(state)])
+    ds, _, collate = build_dataset_for(cfg, device)
+    train_distil.autotune_capacities(cfg, ds, collate,
+                                     logging.getLogger("chip_smoke"))
+    b = collate([ds[i] for i in range(int(cfg.batch_size))])
+    coords = torch.as_tensor(b["coords"], device="cuda")
+    mask = torch.as_tensor(b["mask"], device="cuda")
+    bits = grid_bits_for(coords, mask)
+    topo = build_topology(cfg, coords, mask)
+    dropped = int(topo.dropped.sum())
+    fixed = int(build_brick_topology(
+        coords, mask, grid_bits=5, brick_capacities=cfg.brick_capacities,
+        brick_shape=brick_shape_of(cfg)).dropped.sum())
+    print(f"REGRAD batch ({len(mask)} scenes, {int(mask.sum())} voxels, "
+          f"bricks {cfg.brick_shape}): grid_bits {bits} (+-"
+          f"{2 ** (bits + 1)} voxels), capacities {cfg.brick_capacities}, "
+          f"{dropped} voxels/bricks dropped ({fixed} at the JAX package's "
+          f"fixed grid_bits 5)", flush=True)
+    topo = fold_topology(topo)
+    shapes = main_path_shapes(build_student_for(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    scheds, rows = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    for i, (lvl, c, cout) in enumerate(shapes):
+        lv = topo.levels[lvl]
+        if lvl not in scheds:
+            scheds[lvl] = k1.row_order(lv.occ, lv.nbr)
+        sched = scheds[lvl]
+        occf = lv.occ[..., None].float()
+        x, w = k1_inputs(lv, c, cout, torch.float32, gen)
+        dy = torch.randn(tuple(lv.occ.shape) + (cout,), generator=gen,
+                         device="cuda") * occf
+        ref, gref = plain_by_scenes(x, dy, lv, w, len(mask))
+        fwd = k1_close(k1_call(k1.brick_conv3, x, lv, w, sched), ref,
+                       torch.float32)
+        dgrad = k1_close(k1_call(k1.brick_conv3, dy, lv, k1.mirror_taps(w),
+                                 sched), gref, torch.float32)
+        fault = k1_close(k1_call(k1.brick_conv3, dy, lv,
+                                 w.transpose(1, 2).contiguous(), sched),
+                         gref, torch.float32)
+        torch.cuda.synchronize()
+        row = dict(shape=i, level=lvl, bm=lv.occ.shape[0], c=c, cout=cout,
+                   forward_rel=fwd[1] / fwd[2], dgrad_rel=dgrad[1] / dgrad[2],
+                   fault_rel=fault[1] / fault[2])
+        rows.append(row)
+        print(f"K1 REGRAD (2, 2, 2) L{lvl} {c:4d}->{cout:4d} Bm="
+              f"{row['bm']:6d}: forward rel {row['forward_rel']:.3e}, dgrad "
+              f"rel {row['dgrad_rel']:.3e}; planted fault (taps not "
+              f"mirrored) rel {row['fault_rel']:.3e}", flush=True)
+        check(fwd[0] and dgrad[0], f"K1 at the REGRAD layout, shape {i} "
+              f"(L{lvl} {c}->{cout}): forward {fwd}, dgrad {dgrad}")
+        check(not fault[0], f"K1 at the REGRAD layout, shape {i}: the "
+              f"unmirrored dgrad taps read within the limit ({fault})")
+        del x, w, dy, ref, gref
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del topo, coords, mask
+    torch.cuda.empty_cache()
+    check(dropped == 0, f"the REGRAD batch lost {dropped} voxels/bricks")
+    summary = dict(grid_bits=bits, dropped=dropped, dropped_at_bits5=fixed,
+                   capacities=list(cfg.brick_capacities),
+                   forward_rel=max(r["forward_rel"] for r in rows),
+                   dgrad_rel=max(r["dgrad_rel"] for r in rows),
+                   fault_rel_min=min(r["fault_rel"] for r in rows),
+                   peak_gib=peak, seconds=time.time() - t)
+    print(f"K1 at the REGRAD layout: {summary}", flush=True)
+    report["regrad_k1"] = dict(summary, rows=rows)
+    return summary
+
+
+def regrad_train_phase(state, report):
+    """``tools/train_distil`` (its main, in process) under
+    configs/DistilREGRAD.yaml at its recipe (MinkUNet14D, 768-d, feat_key
+    per_obj, batch 16, voxel 1 mm, 8192 voxels; bricks of (2, 2, 2), see
+    ``regrad_opts``) for one epoch of 3 steps
+    on the ingested scenes, with grounding eval on the seen_val REGRAD
+    queries ({name: [ids]}, the ViT-L text tower in bf16, weights from
+    seed 0): K1 32 per step and 16 per val batch, step times, peak
+    memory, nothing dropped. Keeps the checkpoint for viz_query. Returns
+    the K1 and K6 launches."""
+    from dropclip_tpu_torch.kernels.brick_conv3 import counter
+    from dropclip_tpu_torch.tools import train_distil
+
+    saves = os.path.join(RAW_DIR, "regrad_ckpt")
+    argv = ["--config", os.path.join(ROOT, "configs", "DistilREGRAD.yaml"),
+            "--opts", *regrad_opts(state), "epochs", "1", "print_freq", "1",
+            "eval_task", "grounding", "save_path", saves]
+    torch.cuda.reset_peak_memory_stats()
+    with Launches() as counted:
+        counter.launches = 0
+        ckpt = train_distil.main(argv)
+        k1 = counter.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(ckpt, "train.log")) as f:
+        log = f.read()
+    steps = [float(x) for x in re.findall(r"Batch ([0-9.]+) \(", log)]
+    evals = re.findall(r"Eval Grounding: Epoch=\[0/1\] (\{[^}]*\})", log)
+    metrics = json.loads(evals[0].replace("'", '"')) if evals else {}
+    val_batches = 4 * len(state["sids"]["seen_val"]) // 2
+    # the trainer logs what capacity or the grid's extent dropped
+    dropped = sum(int(x) for x in re.findall(
+        r"(\d+) voxels/bricks dropped", log))
+    print(f"REGRAD training (DistilREGRAD.yaml, batch 16, 3 steps): "
+          f"{counted.wall:.1f} s wall, steps {steps} s, peak {peak:.2f} "
+          f"GiB; K1 {k1}, launches {counted.n}; {dropped} voxels/bricks "
+          f"dropped; Eval Grounding {metrics}", flush=True)
+    check(dropped == 0, f"REGRAD training dropped {dropped} voxels/bricks")
+    check(k1 == 32 * 3 + 16 * val_batches,
+          f"REGRAD training: K1 {k1}, want {32 * 3 + 16 * val_batches}")
+    check(len(steps) == 3 and metrics and all(
+        np.isfinite(v) for v in metrics.values()),
+        f"REGRAD training: steps {steps}, eval {metrics}")
+    state["regrad_ckpt"], state["regrad_saves"] = ckpt, saves
+    report["regrad_train"] = dict(wall_s=counted.wall, steps_s=steps,
+                                  peak_gib=peak, k1=k1, dropped=dropped,
+                                  launches=counted.n, eval=metrics)
+    return k1, counted.n["K6"]
+
+
+def check_rank(order, score, ref_order, ref_score):
+    """Card scores within RANK_TOL of max|score| of the CPU's, and the
+    top-10 order equal wherever neighbouring CPU scores are more than
+    that apart. Returns (max |d| / max|ref|, order equal) without
+    raising."""
+    order, score = order.cpu(), score.cpu().double()
+    ref_score = ref_score.double()
+    scale = float(ref_score.abs().max())
+    err = float((score - ref_score).abs().max()) / max(scale, 1e-30)
+    ranked = ref_score[ref_order]
+    gaps = (ranked[1:] - ranked[:-1]) < -RANK_TOL * scale
+    clear = torch.ones(len(ranked), dtype=torch.bool)
+    clear[1:] &= gaps
+    clear[:-1] &= gaps
+    clear[10:] = False
+    return err, bool(torch.equal(order[clear], ref_order[clear]))
+
+
+def viz_query_phase(state, report):
+    """``tools.make_visualizations`` with ``viz_query`` on the REGRAD
+    checkpoint (2 seen_val scenes): K1 16 per student forward, K6 25 per
+    text encode (the query and the negatives, cached after the first
+    scene), every file; each ``rank_grasps_by_query`` call on the card
+    against the CPU on the same inputs (scores within RANK_TOL of
+    max|score|, the top-10 order where scores are that far apart), timed;
+    planted fault: the radius compared unsquared."""
+    from dropclip_tpu_torch.grasp import grasps
+    from dropclip_tpu_torch.kernels.brick_conv3 import counter
+    from dropclip_tpu_torch.tools import make_visualizations
+    from dropclip_tpu_torch.viz import load_pcd
+
+    out = os.path.join(ROOT, "chiprun_out", "raw_viz")
+    shutil.rmtree(out, ignore_errors=True)
+    inner, calls = grasps.rank_grasps_by_query, []
+
+    def record(*a, **k):
+        res = inner(*a, **k)
+        calls.append((a, k, res))
+        return res
+
+    argv = ["--config", os.path.join(ROOT, "configs", "DistilREGRAD.yaml"),
+            "--opts", *regrad_opts(state), "resume", state["regrad_ckpt"],
+            "viz_dir", out, "max_scenes", "2", "viz_query", "the red mug"]
+    try:
+        with mock.patch.object(grasps, "rank_grasps_by_query", record), \
+                Launches() as counted:
+            counter.launches = 0
+            make_visualizations.main(argv)
+            k1 = counter.launches
+    finally:
+        shutil.rmtree(state["regrad_saves"], ignore_errors=True)
+    names = sorted(os.listdir(out))
+    check(k1 == 16 * 2 and counted.n["K6"] == 25 * 2,
+          f"viz_query: K1 {k1} (want 32), K6 {counted.n['K6']} (want 50)")
+    check(len(names) == 2 * 9 and len(calls) == 2,
+          f"viz_query wrote {names}, ranked {len(calls)} times")
+    xyz, col = load_pcd(os.path.join(out, names[0]))
+    check(len(xyz) > 0 and np.isfinite(xyz).all() and col is not None,
+          f"viz_query: {names[0]} does not read back")
+    rows = []
+    for a, k, (order, score) in calls:
+        cpu = [x.cpu() if torch.is_tensor(x) else x for x in a]
+        ref_order, ref_score = inner(*cpu, **k)
+        err, same = check_rank(order, score, ref_order, ref_score)
+        ferr, fsame = check_rank(*inner(*a, radius=RANK_RADIUS ** 0.5),
+                                 ref_order, ref_score)
+        ms = cuda_ms(lambda: inner(*a, **k), reps=20)
+        rows.append(dict(points=len(a[0]), grasps=len(a[3]), err=err,
+                         order_equal=same, fault_err=ferr,
+                         fault_order_equal=fsame, ms=ms))
+        print(f"rank_grasps_by_query card vs CPU ({len(a[0])} points, "
+              f"{len(a[3])} grasps): max |d| {err:.2e} of max|score|, top-10"
+              f" order equal {same}, {ms:.3f} ms on the card; planted fault "
+              f"(radius unsquared): {ferr:.2e}, order equal {fsame}",
+              flush=True)
+        check(err <= RANK_TOL and same, "grasp ranking card vs CPU outside "
+              "its tolerance")
+        check(ferr > RANK_TOL or not fsame, "the ranking check does not see "
+              "the radius compared unsquared")
+    print(f"viz_query: {len(names)} files, K1 {k1}, launches {counted.n}",
+          flush=True)
+    report["viz_query"] = dict(files=names, k1=k1, launches=counted.n,
+                               ranking=rows)
+    return k1, counted.n["K6"]
+
+
+def raw_check_phase(state, report):
+    """The raw datasets' paths after the ingest teacher is gone: REGRAD
+    and view-feature card-vs-CPU checks, K1 at the REGRAD trainer's
+    layout, REGRAD training, viz_query.
+    Deletes build/raw/. Returns the launches of K1 (both trainers and
+    viz_query) and K6 (the REGRAD trainer's eval and viz_query)."""
+    t = time.time()
+    try:
+        teachers = two_layer_teachers()
+        regrad_cpu_phase(teachers, report)
+        view_clip_cpu_phase(teachers, state["mvtod_root"], report)
+        del teachers
+        state["regrad_train"] = regrad_train_data(
+            state["regrad_proc"], state["regrad_root"], state["sids"])
+        regrad_k1_phase(state, report)
+        k1_train, k6_train = regrad_train_phase(state, report)
+        k1_viz, k6_viz = viz_query_phase(state, report)
+    finally:
+        shutil.rmtree(RAW_DIR, ignore_errors=True)
+    secs = state["seconds"] + time.time() - t
+    print(f"raw datasets phase: {secs:.1f} s in all", flush=True)
+    report["raw_seconds"] = secs
+    return state["k1"] + k1_train + k1_viz, k6_train + k6_viz
 
 
 # the teachers: DINOv2, DINO v1, the RN towers and the extraction CLIs
@@ -3639,8 +4464,6 @@ def teachers_phase(report):
     per-view prompt path at full width; the files go under build/teachers/
     and are deleted afterwards. Returns the K3-K7 launches of the teacher
     paths and the attention rows."""
-    import shutil
-
     t = time.time()
     os.makedirs(TEACHER_DIR, exist_ok=True)
     total = {}
@@ -3751,21 +4574,26 @@ def main():
     k4_n, k5_n = ingest_fallback_phase(extractor, report)
     ingest_profile_phase(extractor, scene, report)
     n_re = run_eval_phase(extractor, scene, report)
+    raw = raw_phase(extractor, report)
     del extractor
     torch.cuda.empty_cache()
     ingest_cpu_phase(report)
     run_eval_cpu_phase(report)
     k1_train_n, k1_train, cli = train_phase(report)
     k1_eval_n, k6_eval_n = eval_phase(cfg, cli, report)
+    k1_raw, k6_raw = raw_check_phase(raw, report)
     tn, trows = teachers_phase(report)
 
     kernels = [
         dict(name="K1 brick_conv3", route="cuda",
              source="dropclip_tpu_torch/csrc/brick_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_conv.py:125",
-             launches=k1_n + k1_train_n + k1_eval_n, serve_launches=k1_n,
-             train_launches=k1_train_n, eval_launches=k1_eval_n, **k1,
-             **k1_train),
+             launches=k1_n + k1_train_n + k1_eval_n + k1_raw,
+             serve_launches=k1_n, train_launches=k1_train_n,
+             eval_launches=k1_eval_n, raw_launches=k1_raw, **k1,
+             **k1_train, regrad_layout={
+                 k: v for k, v in report["regrad_k1"].items()
+                 if k != "rows"}),
         dict(name="K2 pillar_conv3", route="cuda",
              source="dropclip_tpu_torch/csrc/pillar_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_pillar.py:134",
@@ -3773,9 +4601,10 @@ def main():
         dict(name="K3 oneshot_attention_packed", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:180",
-             launches=n_ing["K3"] + n_re["K3"] + tn["K3"],
+             launches=n_ing["K3"] + n_re["K3"] + raw["n"]["K3"] + tn["K3"],
              ingest_launches=n_ing["K3"], run_eval_launches=n_re["K3"],
-             teacher_launches=tn["K3"], **att["K3"]),
+             raw_launches=raw["n"]["K3"], teacher_launches=tn["K3"],
+             **att["K3"]),
         dict(name="K4 oneshot_attention", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:93",
@@ -3794,17 +4623,19 @@ def main():
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:153",
              launches=(k6_n + k6_np + n_ing["K6"] + n_re["K6"] + k6_eval_n
-                       + tn["K6"]),
+                       + raw["n"]["K6"] + k6_raw + tn["K6"]),
              run_eval_launches=n_re["K6"], eval_launches=k6_eval_n,
+             raw_launches=raw["n"]["K6"] + k6_raw,
              teacher_launches=tn["K6"], **k6, teacher_rows={
                  tag: row for tag, row in trows.items()
                  if tag.startswith("K6")}),
         dict(name="K7 add_layer_norm", route="triton",
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:125",
-             launches=n_ing["K7"] + n_re["K7"] + tn["K7"],
+             launches=n_ing["K7"] + n_re["K7"] + raw["n"]["K7"] + tn["K7"],
              ingest_launches=n_ing["K7"], run_eval_launches=n_re["K7"],
-             teacher_launches=tn["K7"], **k7, teacher_rows={
+             raw_launches=raw["n"]["K7"], teacher_launches=tn["K7"], **k7,
+             teacher_rows={
                  tag: row for tag, row in trows.items()
                  if tag.startswith("K7")}),
     ]

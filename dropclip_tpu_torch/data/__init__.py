@@ -1,14 +1,16 @@
-"""Host-side data pipeline: processed datasets, augmentation, loader."""
+"""Host-side data pipeline: raw readers, processed datasets, augmentation,
+loader."""
 
 
-def build_dataset_for(cfg):
-    """Dataset dispatch on cfg.dataset: the MV-TOD (Blender) dataset; the
-    REGRAD dataset raises until it is ported."""
+def build_dataset_for(cfg, device=None):
+    """Dataset dispatch on cfg.dataset: REGRAD or MV-TOD (Blender);
+    ``device`` runs the MV-TOD dataset's ``use_view_clip`` teacher (the
+    card unless the caller asks for the CPU)."""
     name = (cfg.dataset or "DistilBlender").lower()
     if "regrad" in name:
-        raise NotImplementedError(
-            "the REGRAD dataset is not ported yet: it waits for its ROADMAP "
-            "queue 1 item, the REGRAD dataset")
+        from .dataset_regrad import build_dataset
+
+        return build_dataset(cfg)
     from .dataset_blender import build_dataset
 
-    return build_dataset(cfg)
+    return build_dataset(cfg, device=device)

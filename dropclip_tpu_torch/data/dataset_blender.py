@@ -14,17 +14,25 @@ quantization, eval-query construction.
   occupancy mask; the collate stacks the trainer's batch arrays.
 - Randomness is a per-(seed, epoch, index) ``np.random.Generator``
   (``_rng``), so samples equal the JAX dataset's draw for draw.
-- ``use_view_clip`` (per-point CLIP patch features of the sample's view)
-  raises: it reads the raw Blender views, whose reader is not ported.
+- ``use_view_clip`` widens the input with per-point CLIP patch features
+  of the sample's view, read from the raw MV-TOD tree under ``raw_root``:
+  the patch teacher (``view_clip_model``, ViT-L/14@336px by default, in
+  bf16) runs on ``device`` (the card unless the caller asks for the
+  CPU), and its patch maps stay there in an LRU cache of
+  ``view_clip_cache_views`` views.
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
+import threading
+from collections import OrderedDict
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from . import augmentations as aug
 from .queries import prepare_queries
@@ -32,6 +40,27 @@ from .scene_io import read_scene
 from .voxelize_np import sparse_quantize_np
 
 MAX_POINTS = 10000  # reference dataset_blender.py:20
+
+
+def view_clip_pixels(xyz_world: np.ndarray, pose: np.ndarray, K: np.ndarray,
+                     hw: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """World points -> (column, row) pixels of one MV-TOD view (reference
+    generate_view_clip, dataset_blender.py:133-171): world->cam through
+    the view's cam->world ``pose``, the blender y/z flip, pinhole with
+    int truncation (z == 0 -> pixel (0, 0)), clipped to the image (points
+    outside it take edge pixels, a reference quirk kept)."""
+    pts = np.concatenate([xyz_world, np.ones((len(xyz_world), 1))], axis=1)
+    cam = (np.linalg.inv(pose) @ pts.T).T[:, :3]
+    cam[:, 1] *= -1.0
+    cam[:, 2] *= -1.0
+    uvw = (K @ cam.T).T
+    z = uvw[:, 2]
+    px = np.zeros(len(cam), np.int64)
+    py = np.zeros(len(cam), np.int64)
+    nz = z != 0
+    px[nz] = (uvw[nz, 0] / z[nz]).astype(np.int64)
+    py[nz] = (uvw[nz, 1] / z[nz]).astype(np.int64)
+    return np.clip(px, 0, hw[1] - 1), np.clip(py, 0, hw[0] - 1)
 
 
 def _scene_files(root: str, split: str) -> List[str]:
@@ -44,7 +73,10 @@ def _scene_files(root: str, split: str) -> List[str]:
 
 
 class MVTODDataset:
-    def __init__(self, cfg, split: str):
+    """``device``: where the ``use_view_clip`` teacher runs (the card
+    unless the caller asks for the CPU); nothing else runs on a device."""
+
+    def __init__(self, cfg, split: str, device=None):
         self.cfg = cfg
         self.split = split
         self.root = cfg.root_dir
@@ -54,11 +86,6 @@ class MVTODDataset:
         self.use_color = bool(cfg.use_color)
         self.seed = int(cfg.manual_seed or 42)
         self.epoch = 0
-        if cfg.use_view_clip:
-            raise NotImplementedError(
-                "use_view_clip is not ported yet: it waits for its ROADMAP "
-                "queue 1 item 6 entry, the Blender and REGRAD readers "
-                "(data/blender.py)")
 
         files = _scene_files(self.root, split)
         self.data: List[Tuple[str, int]] = []
@@ -73,6 +100,32 @@ class MVTODDataset:
                 self.data = [(f, i) for f in files for i in ids]
         else:
             self.data = [(f, -1) for f in files]
+
+        self.use_view_clip = bool(cfg.use_view_clip)
+        if self.use_view_clip:
+            # the raw tree with the view pngs + cameras json; the reference
+            # reads them from the processed root itself (dataset_blender.py
+            # :140-144: its processed h5 sits inside the raw scene dirs)
+            self.raw_root = cfg.raw_root or self.root
+            # reference :67-71 hardcodes the UNSCALED blender intrinsics
+            # here (ignoring base_scale, unlike the raw reader): kept as
+            # the default, overridable for non-640x480 trees
+            fx, fy, cx, cy = (cfg.view_clip_intrinsics
+                              or (444.44444444, 444.44444444, 319.5, 239.5))
+            self._vc_K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]],
+                                  np.float64)
+            self._vc_hw = tuple(cfg.view_clip_hw or (480, 640))
+            self._vc_cache: "OrderedDict[Tuple[str, int], torch.Tensor]" = \
+                OrderedDict()
+            self._vc_cache_cap = int(cfg.view_clip_cache_views or 64)
+            self._vc_device = device
+            self._vc_extractor = None
+            self._vc_poses: Dict[str, List[np.ndarray]] = {}
+            #: patch-map cache misses (one teacher forward each)
+            self.vc_misses = 0
+            # data.loader prefetches __getitem__ from a thread pool:
+            # serialize the lazy init and the patch-map cache fills
+            self._vc_lock = threading.Lock()
 
         self.use_augm = bool(cfg.use_augmentation) and split == "train"
         if self.use_augm:
@@ -134,6 +187,83 @@ class MVTODDataset:
         R = mats[2] @ mats[1] @ mats[0]
         return xyz @ R.T
 
+    # ---- use_view_clip helpers (reference dataset_blender.py:133-171) ----
+
+    def _vc_scene_dir(self, scene_id: str) -> str:
+        for d in (os.path.join(self.raw_root, self.split, scene_id),
+                  os.path.join(self.raw_root, scene_id)):
+            if os.path.isdir(d):
+                return d
+        raise FileNotFoundError(
+            f"use_view_clip: no raw scene dir for {scene_id!r} under "
+            f"{self.raw_root!r} (set cfg.raw_root to the raw MV-TOD tree)")
+
+    def _vc_get_extractor(self):
+        """The patch teacher, built on first use (bf16, weights from
+        ``clip_checkpoint`` or drawn from seed 0)."""
+        if self._vc_extractor is None:
+            from ..core.device import resolve_device
+            from ..teachers.convert import build_clip_from
+            from ..teachers.extractor import ClipExtractor
+
+            model = build_clip_from(
+                self.cfg.view_clip_model or "ViT-L/14@336px",
+                self.cfg.clip_checkpoint, dtype=torch.bfloat16,
+                device=resolve_device(self._vc_device),
+                context="use_view_clip")
+            self._vc_extractor = ClipExtractor(
+                model, mode="patch",
+                img_resize=tuple(self.cfg.view_clip_resize or (336, 448)),
+                batch_size=int(self.cfg.view_clip_batch or 12))
+        return self._vc_extractor
+
+    def _vc_patch_map(self, scene_id: str, view_id: int) -> torch.Tensor:
+        """(ph, pw, C) float32 patch features of one view on the teacher's
+        device, LRU-cached."""
+        key = (scene_id, view_id)
+        with self._vc_lock:
+            if key in self._vc_cache:
+                self._vc_cache.move_to_end(key)
+                return self._vc_cache[key]
+            from .blender import BlenderDataset
+
+            ex = self._vc_get_extractor()
+            d = self._vc_scene_dir(scene_id)
+            rgbs = sorted(glob.glob(f"{d}/image.{scene_id}.rgb.*.png"))
+            img = BlenderDataset.read_rgb(rgbs[view_id])
+            pf = ex.extract(img[None])[0].to(torch.float32)
+            self.vc_misses += 1
+            self._vc_cache[key] = pf
+            while len(self._vc_cache) > self._vc_cache_cap:
+                self._vc_cache.popitem(last=False)
+            return pf
+
+    def _vc_pose(self, scene_id: str, view_id: int) -> np.ndarray:
+        if scene_id not in self._vc_poses:
+            d = self._vc_scene_dir(scene_id)
+            with open(f"{d}/cameras.{scene_id}.json") as f:
+                cams = json.load(f)
+            self._vc_poses[scene_id] = [
+                np.asarray(cams[k]["world_matrix"], np.float64)
+                for k in sorted(cams)]
+        return self._vc_poses[scene_id][view_id]
+
+    def _view_clip_features(self, xyz_world: np.ndarray, scene_id: str,
+                            view_id: int) -> np.ndarray:
+        """Per-point view CLIP features (N, C), reference
+        generate_view_clip (:133-171): the view's pixels of the points
+        (``view_clip_pixels``), then a bicubic patch-map sample at them
+        (``ops.resize.bicubic_sample_at`` on the teacher's device)."""
+        from ..ops.resize import bicubic_sample_at
+
+        h, w = self._vc_hw
+        px, py = view_clip_pixels(xyz_world, self._vc_pose(scene_id, view_id),
+                                  self._vc_K, (h, w))
+        pf = self._vc_patch_map(scene_id, view_id)
+        as_dev = lambda a: torch.from_numpy(a).to(pf.device)
+        return bicubic_sample_at(pf, (h, w), as_dev(px),
+                                 as_dev(py)).cpu().numpy()
+
     def __getitem__(self, index: int) -> Dict:
         path, view_id = self.data[index]
         scene_id = os.path.basename(os.path.dirname(path)) or \
@@ -171,15 +301,29 @@ class MVTODDataset:
         idx = rng.choice(n, MAX_POINTS, replace=n < MAX_POINTS)
         xyz, rgb, label, feat = xyz[idx], rgb[idx], label[idx], feat[idx]
 
+        view_feat = None
+        if self.use_view_clip:
+            # single-view samples only: the feature is what THIS view's
+            # CLIP sees at each point (a k-view union has no single view)
+            if view_id < 0:
+                raise ValueError(
+                    "use_view_clip requires explicit single views "
+                    "(use_view_ids with use_k_views <= 1)")
+            # world-frame coords, before the centre shift
+            view_feat = self._view_clip_features(xyz, scene_id, view_id)
+
         xyz = xyz - xyz.mean(0)
         if self.use_augm:
             if self.cfg.aug_random_shift:
                 xyz = xyz + rng.uniform(xyz.min(0), xyz.max(0)) / 2
             if self.cfg.aug_random_rotation:
                 xyz = self._random_rotation(xyz, rng)
-            cat = np.concatenate([rgb, feat], axis=-1)
+            parts = [rgb, feat] if view_feat is None else [rgb, feat, view_feat]
+            cat = np.concatenate(parts, axis=-1)
             xyz, cat, label = self.coord_transforms(xyz, cat, label, rng)
             rgb, feat = cat[:, :3], cat[:, 3:3 + feat_dim]
+            if view_feat is not None:
+                view_feat = cat[:, 3 + feat_dim:]
             if self.color_transforms is not None:
                 rgb8 = (255 * rgb).astype(np.uint8).astype(np.float32)
                 xyz, rgb8, label = self.color_transforms(xyz, rgb8, label, rng)
@@ -191,6 +335,11 @@ class MVTODDataset:
         in_parts = [xyz[rep].astype(np.float32)]
         if self.use_color:
             in_parts.append(rgb[rep].astype(np.float32))
+        if view_feat is not None:
+            # [xyz, rgb, view_feat], the reference's cat_features order
+            # (:400-404); the student's stem takes the widened input
+            # (``in_channels``)
+            in_parts.append(view_feat[rep].astype(np.float32))
         in_feats = np.concatenate(in_parts, axis=-1) * vox.mask[:, None]
         targets = feat[rep].astype(np.float32) * vox.mask[:, None]
 
@@ -224,9 +373,11 @@ class MVTODDataset:
         return out
 
 
-def build_dataset(cfg):
-    """(train, val or None, collate) (reference dataset_blender.py:478-486)."""
-    train = MVTODDataset(cfg, split="train")
+def build_dataset(cfg, device=None):
+    """(train, val or None, collate) (reference dataset_blender.py:478-486);
+    ``device`` runs the ``use_view_clip`` teacher."""
+    train = MVTODDataset(cfg, split="train", device=device)
     if cfg.evaluate:
-        return train, MVTODDataset(cfg, split="test"), MVTODDataset.collate
+        return (train, MVTODDataset(cfg, split="test", device=device),
+                MVTODDataset.collate)
     return train, None, MVTODDataset.collate

@@ -1,4 +1,4 @@
-"""Processed-scene HDF5 schema (read/write).
+"""Processed-scene schemas (read/write): MV-TOD and REGRAD.
 
 Port of ``dropclip_tpu/data/scene_io.py``, byte-compatible with it and with
 the reference's preprocessing output (tools/preprocess_data.py:285-297):
@@ -16,6 +16,20 @@ A path ending in ``.npz`` holds the same schema as one numpy archive
 and ``objects_info`` as its python literal): the card's machine has no
 h5py, and ``process_scene(write=...)`` writes ``.npz`` there. ``h5py`` is
 imported inside the h5 branches only.
+
+REGRAD ingest (``process_regrad_scene``) writes another schema, the one
+``data/dataset_regrad.py`` reads (reference save_multiview_dataset_h5py,
+tools/preprocess_data.py:40-58):
+
+  pointcloud/xyz          (N, 3)  f32
+  pointcloud/rgb          (N, 3)  f32
+  pointcloud/label        (N,)    u8    instance ids
+  multiview/patch         (N, C)  f32   per-point fused patch features
+  multiview/per_obj       (K, C)  f32   per-object obj-prior features
+  multiview/obj_ids       (K,)    u8
+
+as ``.npz`` with the keys ``xyz``, ``rgb``, ``label``, ``patch``,
+``per_obj`` and ``obj_ids``.
 """
 
 from __future__ import annotations
@@ -99,3 +113,53 @@ def read_scene(path: str) -> ProcessedScene:
             obj_ids=f["multiview"]["obj_ids"][:].astype(np.int32),
             objects_info=literal_eval(obj_info),
         )
+
+
+REGRAD_KEYS = {"xyz": "pointcloud", "rgb": "pointcloud",
+               "label": "pointcloud", "patch": "multiview",
+               "per_obj": "multiview", "obj_ids": "multiview"}
+
+
+def write_regrad_scene(path: str, xyz: np.ndarray, rgb: np.ndarray,
+                       label: np.ndarray, patch: np.ndarray,
+                       per_obj: np.ndarray, obj_ids: np.ndarray) -> None:
+    """Write one processed REGRAD scene atomically (h5, or ``.npz`` for a
+    path ending in it). Labels and object ids are stored as uint8: an id
+    of 256 or more would wrap and scramble the label-to-feature pairing,
+    so it raises."""
+    for name, ids in (("label", label), ("obj_ids", obj_ids)):
+        if len(ids) and int(np.max(ids)) >= 256:
+            raise ValueError(f"{name} id {int(np.max(ids))} does not fit "
+                             "uint8")
+    arrays = dict(xyz=np.asarray(xyz, np.float32),
+                  rgb=np.asarray(rgb, np.float32),
+                  label=np.asarray(label).astype(np.uint8),
+                  patch=np.asarray(patch, np.float32),
+                  per_obj=np.asarray(per_obj, np.float32),
+                  obj_ids=np.asarray(obj_ids).astype(np.uint8))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    if path.endswith(".npz"):
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+    else:
+        import h5py
+
+        with h5py.File(tmp, "w") as f:
+            for group in ("pointcloud", "multiview"):
+                g = f.create_group(group)
+                for k, grp in REGRAD_KEYS.items():
+                    if grp == group:
+                        g.create_dataset(k, data=arrays[k])
+    os.replace(tmp, path)
+
+
+def read_regrad_scene(path: str, keys=tuple(REGRAD_KEYS)) -> Dict:
+    """The arrays ``keys`` of one processed REGRAD scene (h5 or .npz)."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: z[k] for k in keys}
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {k: f[REGRAD_KEYS[k]][k][:] for k in keys}

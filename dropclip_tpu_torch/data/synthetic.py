@@ -11,7 +11,13 @@ numbers from the same random state), numpy only:
 - ``make_volumetric_coords``: voxel coordinates of bin and shelf scenes,
   solid boxes through the z range (the pillar engine's path);
 - ``write_fake_processed_dataset``: a miniature processed dataset for the
-  trainer, in the h5 schema or as ``.npz`` archives of it.
+  trainer, in the h5 schema or as ``.npz`` archives of it;
+- ``write_fake_raw_blender``: a raw MV-TOD tree in the reference on-disk
+  layout (the JAX writer's numbers at its defaults);
+- ``write_fake_raw_regrad``: a raw REGRAD tree in the layout of the JAX
+  package's REGRAD ingest fixture (``tests/test_regrad_ingest.py``).
+
+cv2 (the image files) is imported inside the raw writers only.
 """
 
 from __future__ import annotations
@@ -227,3 +233,215 @@ def write_fake_processed_dataset(root: str, n_scenes: int = 3,
                 xyz=raw["points"], rgb=raw["colors"], label=raw["labels"],
                 vis_mask=vis, obj_feats=feats,
                 objects_info=raw["objects_info"])
+
+
+def write_fake_raw_blender(root: str, n_scenes: int = 1, n_objects: int = 2,
+                           n_views: int = 3, split: str = "train",
+                           hw: Tuple[int, int] = (48, 64), seed: int = 0,
+                           n_points_per_obj: int = 120) -> None:
+    """Write a raw MV-TOD tree in the reference on-disk layout (reference
+    data/blender.py:167-280; the JAX package's ``write_fake_raw_blender``,
+    the same files at the same arguments): per scene dir, rgb pngs, depth
+    as ``.npy`` (the reader's fallback to EXR), iseg pngs, a COCO annos
+    json with compressed-RLE masks and ``seg_color_hex``, camera poses
+    json, ``objects[.init]`` json with ``base_scale`` and hex colours; the
+    category list at the root. ``n_points_per_obj`` sizes the rendered
+    objects (``make_raw_scene``)."""
+    import json
+
+    import cv2
+
+    from .rle import encode_rle
+
+    rng = np.random.default_rng(seed)
+    for sid in range(n_scenes):
+        raw = make_raw_scene(rng, n_objects=n_objects,
+                             n_points_per_obj=n_points_per_obj,
+                             n_views=n_views, hw=hw)
+        d = os.path.join(root, split, f"{sid:06d}")
+        os.makedirs(d, exist_ok=True)
+        hexes = [f"#{(k * 40 + 30):02x}{(k * 20 + 10):02x}{(k * 10 + 5):02x}"
+                 for k in range(1, n_objects + 1)]
+        images_meta, annos_meta = [], []
+        cameras = {}
+        aid = 0
+        for v in range(n_views):
+            view_id = f"{v:04d}"
+            rgb_f = f"image.{sid:06d}.rgb.{view_id}.png"
+            cv2.imwrite(os.path.join(d, rgb_f), raw["images"][v][:, :, ::-1])
+            np.save(os.path.join(d, f"image.{sid:06d}.raw_depth.{view_id}.npy"),
+                    raw["depths"][v])
+            cv2.imwrite(os.path.join(d, f"image.{sid:06d}.iseg.{view_id}.png"),
+                        (raw["segs"][v] * 30).astype(np.uint8))
+            images_meta.append({"file_name": rgb_f, "id": v})
+            cameras[view_id] = {"world_matrix": raw["poses"][v].tolist()}
+            for k in range(1, n_objects + 1):
+                m = (raw["segs"][v] == k).astype(np.uint8)
+                if m.sum() == 0:
+                    continue
+                annos_meta.append({"id": aid, "image_id": v,
+                                   "segmentation": encode_rle(m),
+                                   "seg_color_hex": hexes[k - 1]})
+                aid += 1
+        with open(os.path.join(d, f"annos.{sid:06d}.coco.json"), "w") as f:
+            json.dump({"images": images_meta, "annotations": annos_meta}, f)
+        with open(os.path.join(d, f"cameras.{sid:06d}.json"), "w") as f:
+            json.dump(cameras, f)
+        objs_init = [{
+            "color": {"hex": hexes[k - 1]},
+            "path": f"models/shapenet/{CLS_NAMES[k % len(CLS_NAMES)]}/m{k}",
+            "cls_name": raw["objects_info"][k]["cls_name"],
+            "source": "shapenet", "sim_scale": 1.0,
+        } for k in range(1, n_objects + 1)]
+        objs_init.append({"base_scale": 10.0})
+        objs_final = [{"size": [0.1] * 3, "pose": [0, 0, 0],
+                       "bbox": [0, 0, 1, 1], "rotation": [0, 0, 0, 1]}
+                      for _ in range(n_objects)]
+        with open(os.path.join(d, f"objects.init.{sid:06d}.json"), "w") as f:
+            json.dump(objs_init, f)
+        with open(os.path.join(d, f"objects.{sid:06d}.json"), "w") as f:
+            json.dump(objs_final, f)
+    meta = {"categories": [{"id": i, "name": n}
+                           for i, n in enumerate(CLS_NAMES)]}
+    with open(os.path.join(root, "annos.meta.coco.json"), "w") as f:
+        json.dump(meta, f)
+
+
+#: the raw REGRAD reader's image view for each cloud view
+#: (``data.regrad.VIEWS_MAPPING``)
+_REGRAD_VIEWS = {1: 9, 2: 1, 3: 2, 4: 3, 5: 4, 6: 5, 7: 6, 8: 7, 9: 8}
+
+
+def _merge_json(path: str, entries: Dict) -> None:
+    import json
+
+    old = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            old = json.load(f)
+    with open(path, "w") as f:
+        json.dump({**old, **entries}, f)
+
+
+def write_fake_raw_regrad(root: str, n_scenes: int = 1, n_objects: int = 2,
+                          n_views: int = 2, points_per_obj: int = 150,
+                          hw: Tuple[int, int] = (48, 64),
+                          K: np.ndarray = None, split: str = "train",
+                          seed: int = 0) -> list:
+    """Write a raw REGRAD tree in the layout of the JAX package's REGRAD
+    ingest fixture (``tests/test_regrad_ingest.py``, with the reader
+    settings of ``configs/REGRAD.yaml``): under ``root/split``,
+    ``Points/<sid>/<sid>_view_<v>.p`` (world-frame view cloud with 0-based
+    labels, colours, scene cloud and grasp frames, scores and labels),
+    ``RGBImages/<sid>_<iv>.jpg``, ``DepthImages/<sid>_<iv>.png`` (uint16
+    mm) and ``SegmentationImages/<sid>_<iv>.png`` (labels + 1, background
+    0) at the image view ``iv`` of cloud view ``v``, and ``objects.json``
+    (``objects_16k.json`` off the train split); ``root/camera_info.npy``
+    (extrinsics of views 1-9 and, when ``K`` is given, the intrinsics;
+    without it the ingest's default K, which centres 840x840 images).
+
+    Objects are a pile of sphere surfaces at z < 0 seen by cameras that
+    look down -z (the REGRAD y/z flip puts them in front), so the
+    segmentation drawn from the same projections keeps the clouds
+    through the ingest's 2D/3D cleanup. For the distillation dataset, the per-scene
+    object lists go to ``objects_single.json`` (train) or
+    ``objects_refer_test.json`` (other splits) and the model-name classes
+    to ``cls_map.json`` at the root. Returns the scene ids."""
+    import json
+    import pickle
+
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    Kc = (np.array([[1120.0, 0, 420], [0, 1120.0, 420], [0, 0, 1]])
+          if K is None else np.asarray(K, np.float64))
+    d = os.path.join(root, split)
+    for sub in ("RGBImages", "DepthImages", "SegmentationImages"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    # cameras shifted in x and y, all looking down -z
+    extr = {}
+    for v in range(1, 10):
+        T = np.eye(4)
+        a = 2 * np.pi * v / 9
+        T[:2, 3] = 0.04 * np.cos(a), 0.04 * np.sin(a)
+        extr[v] = T
+    info = {"extrinsic": extr}
+    if K is not None:
+        info["intrinsic"] = np.asarray(K, np.float32)
+    np.save(os.path.join(root, "camera_info.npy"), info, allow_pickle=True)
+
+    # a pile of spheres of radius spread / 5 within spread / 4 of the
+    # view's axis at z = -1: spread is a tenth of the image at z = 1
+    # (0.075 m at 840x840 and f = 1120)
+    spread = 0.1 * min(h, w) / Kc[0, 0]
+    sids, distil_objs = [], {}
+    for s in range(n_scenes):
+        sid = f"s{seed:02d}{s:04d}"
+        sids.append(sid)
+        os.makedirs(os.path.join(d, "Points", sid), exist_ok=True)
+        names = [CLS_NAMES[(s + k) % len(CLS_NAMES)]
+                 for k in range(n_objects)]
+        centers = np.c_[rng.uniform(-1, 1, (n_objects, 2)) * spread / 4,
+                        rng.uniform(-1, 1, n_objects) * spread / 6 - 1.0]
+        # sphere surfaces, as a depth camera sees objects (a cloud in
+        # bricks, not one voxel a brick at millimetre voxels)
+        u = rng.normal(size=(n_objects * points_per_obj, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        pts = (np.repeat(centers, points_per_obj, 0)
+               + spread / 5 * u).astype(np.float32)
+        labs = np.repeat(np.arange(n_objects), points_per_obj)
+        obj_col = rng.uniform(0.1, 0.9, (n_objects, 3))
+        cols = np.clip(obj_col[labs] + rng.normal(0, 0.03, (len(pts), 3)),
+                       0, 1).astype(np.float32)
+        n_g = 4 * n_objects
+        glab = rng.randint(0, n_objects, n_g)
+        frames = np.tile(np.eye(4), (n_g, 1, 1))
+        frames[:, :3, 3] = centers[glab] + np.array([0, 0, 0.08])
+        for v in range(1, n_views + 1):
+            cam = pts.astype(np.float64) - extr[v][:3, 3]
+            cam[:, 1:] *= -1
+            uvw = cam @ Kc.T
+            uv = (uvw[:, :2] / uvw[:, 2:3]).astype(int)
+            inside = ((uv[:, 0] >= 0) & (uv[:, 1] >= 0) & (uv[:, 0] < w)
+                      & (uv[:, 1] < h))
+            order = np.argsort(-uvw[:, 2])  # near points drawn last
+            order = order[inside[order]]
+            ys, xs = uv[order, 1], uv[order, 0]
+            seg = np.zeros((h, w), np.uint8)
+            seg[ys, xs] = labs[order] + 1
+            depth = np.zeros((h, w), np.uint16)
+            depth[ys, xs] = (uvw[order, 2] * 1000).astype(np.uint16)
+            img = np.full((h, w, 3), 128, np.uint8)
+            img[ys, xs] = (cols[order] * 255).astype(np.uint8)
+            data = {"view_cloud": pts[inside],
+                    "view_cloud_color": cols[inside],
+                    "view_cloud_label": labs[inside],
+                    "scene_cloud": pts[::7],
+                    "valid_index": np.arange(n_g),
+                    "select_frame": frames,
+                    "select_score": rng.rand(n_g),
+                    "select_frame_label": glab}
+            with open(os.path.join(d, "Points", sid, f"{sid}_view_{v}.p"),
+                      "wb") as f:
+                pickle.dump(data, f)
+            iv = _REGRAD_VIEWS[v]
+            cv2.imwrite(os.path.join(d, "RGBImages", f"{sid}_{iv}.jpg"),
+                        img[:, :, ::-1])
+            cv2.imwrite(os.path.join(d, "DepthImages", f"{sid}_{iv}.png"),
+                        depth)
+            cv2.imwrite(os.path.join(d, "SegmentationImages",
+                                     f"{sid}_{iv}.png"), seg)
+        objs = [{"obj_id": k + 1, "model_name": names[k],
+                 "6D_pose": [*centers[k], 0, 0, 0, 1], "bbox": None,
+                 "minAreaRect": None} for k in range(n_objects)]
+        fname = "objects.json" if split == "train" else "objects_16k.json"
+        _merge_json(os.path.join(d, fname),
+                    {sid: {str(v): objs for v in range(1, 10)}})
+        distil_objs[sid] = [{"obj_id": k + 1, "model_name": names[k],
+                             "exists": True} for k in range(n_objects)]
+    _merge_json(os.path.join(root, "objects_single.json" if split == "train"
+                             else "objects_refer_test.json"), distil_objs)
+    _merge_json(os.path.join(root, "cls_map.json"),
+                {n: i for i, n in enumerate(CLS_NAMES)})
+    return sids

@@ -17,7 +17,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..sparse.bricks import BrickTopology, build_brick_topology
+from ..sparse.bricks import (BrickTopology, build_brick_topology,
+                             grid_bits_for)
 from .loss import (aux_hinge_loss, cosine_distil_loss, cross_entropy_cls_loss,
                    l1_distil_loss)
 from .train_state import DistilTrainState
@@ -35,11 +36,15 @@ def _require_bricks(cfg) -> None:
 def build_topology(cfg, coords: torch.Tensor, mask: torch.Tensor
                    ) -> BrickTopology:
     """Brick topology for (B, M, 3) coords on their device; brick
-    capacities from ``cfg.brick_capacities`` (None -> the M//8 rule)."""
+    capacities from ``cfg.brick_capacities`` (None -> the M//8 rule); the
+    grid is the smallest that holds every voxel of the batch, at least
+    the JAX package's fixed 5 (+-64 voxels, which drops much of a REGRAD
+    scene at 1 mm once augmented)."""
     _require_bricks(cfg)
     caps = cfg.brick_capacities
     return build_brick_topology(
         coords, mask, num_levels=int(cfg.num_levels or 5),
+        grid_bits=grid_bits_for(coords, mask),
         brick_capacities=tuple(caps) if caps else None,
         brick_shape=brick_shape_of(cfg))
 
@@ -55,12 +60,28 @@ def brick_shape_of(cfg) -> tuple:
     return tuple(int(v) for v in bs)
 
 
+def student_in_channels(cfg) -> int:
+    """Width of the dataset's ``in_feats``: xyz, rgb with ``use_color``,
+    and with ``use_view_clip`` the view teacher's patch features (its CLIP
+    embedding width: 774 in all for ViT-L/14@336px). The flax student
+    reads it off its first input; here the stem is built for it."""
+    width = 6 if cfg.use_color else 3
+    if cfg.use_view_clip:
+        from ..teachers.clip import CLIP_CONFIGS
+
+        width += CLIP_CONFIGS[cfg.view_clip_model
+                              or "ViT-L/14@336px"]["embed_dim"]
+    return width
+
+
 def build_student_for(cfg, generator: Optional[torch.Generator] = None):
-    """Student factory honouring cfg.sparse_backend (bricks only)."""
+    """Student factory honouring cfg.sparse_backend (bricks only), its
+    stem as wide as the dataset's input (``student_in_channels``)."""
     _require_bricks(cfg)
     from ..sparse.unet_bricks import build_student_bricks
 
-    return build_student_bricks(cfg, generator=generator)
+    return build_student_bricks(cfg, in_channels=student_in_channels(cfg),
+                                generator=generator)
 
 
 def topology_dropped(topo) -> torch.Tensor:

@@ -5,9 +5,10 @@ occupied bricks of shape (bx, by, bz) (powers of two >= 2):
 
 - features live dense per brick, (Bm, bx, by, bz, C), with a voxel
   occupancy mask (absent voxels hold zeros: submanifold semantics);
-- the topology is brick-level only: a dense rank table over the brick
-  grid, the 27-neighbour brick rows, and the 2x2x2 group / parent maps
-  between pyramid levels;
+- the topology is brick-level only: the occupied brick cells in sorted
+  order (a brick's row is its cell's rank, as in the JAX package's dense
+  rank table), the 27-neighbour brick rows, and the 2x2x2 group /
+  parent maps between pyramid levels;
 - stride-1 convs gather a halo around every brick and run the taps as
   matmuls; the k3 case is the plain version of the CUDA kernel
   ``kernels/brick_conv3.py`` (K1), which serves every k3 conv on the card.
@@ -69,36 +70,51 @@ class BrickTopology(NamedTuple):
 
 class _GridLevel(NamedTuple):
     level: BrickLevel
-    row_table: torch.Tensor  # (B, cells + 1) cell -> brick row (guard -> cap)
+    table: torch.Tensor  # (B, cap) occupied cell ids, ascending (pad: cells)
     gdims: Tuple[int, int, int]
     bias: Tuple[int, int, int]
+
+
+def _n_cells(gdims: Tuple[int, int, int]) -> int:
+    return gdims[0] * gdims[1] * gdims[2]
+
+
+def _rows_of(table: torch.Tensor, cells: torch.Tensor,
+             n_cells: int) -> torch.Tensor:
+    """Brick row of each cell id: its place in the level's sorted
+    ``table`` of occupied cells (B, cap), or cap where the cell holds no
+    brick of the level (empty, past capacity, or the guard ``n_cells``)."""
+    cap = table.shape[1]
+    idx = torch.searchsorted(table, cells)
+    hit = torch.gather(table, 1, idx.clamp(max=cap - 1)) == cells
+    return torch.where(hit & (cells < n_cells), idx, cap)
 
 
 def _grid_level(cells: torch.Tensor, capacity: int,
                 gdims: Tuple[int, int, int], bias: Tuple[int, int, int],
                 bshape: Tuple[int, int, int]) -> _GridLevel:
     """cells: (B, N) int64 dense cell ids of occupied bricks (guard
-    gx*gy*gz for invalid) -> brick level (occ filled by the caller)."""
+    gx*gy*gz for invalid) -> brick level (occ filled by the caller).
+
+    A brick's row is the rank of its cell among the scene's occupied
+    cells, as in the JAX package's dense rank table; here the ranks come
+    from sorting the cells, so memory follows the bricks, not the grid."""
     b = cells.shape[0]
     dev = cells.device
     gx, gy, gz = gdims
     n_cells = gx * gy * gz
-    occ_cell = torch.zeros((b, n_cells + 1), dtype=torch.bool, device=dev)
-    occ_cell.scatter_(1, cells, True)
-    occ_cell = occ_cell[:, :-1]
-    rank = torch.cumsum(occ_cell, dim=1) - 1
-    n = rank[:, -1] + 1
-    row_table = torch.where(occ_cell & (rank < capacity), rank, capacity)
-    row_table = torch.cat(
-        [row_table, torch.full((b, 1), capacity, device=dev,
-                               dtype=row_table.dtype)], dim=1)
-
-    cell_ids = torch.arange(n_cells, device=dev).expand(b, -1)
+    srt = torch.sort(cells, dim=1).values
+    head = srt < n_cells
+    head[:, 1:] &= srt[:, 1:] != srt[:, :-1]
+    rank = torch.cumsum(head, dim=1) - 1
+    n = head.sum(1)
+    dst = torch.where(head & (rank < capacity), rank, capacity)
     brick_cell = torch.zeros((b, capacity + 1), dtype=torch.int64, device=dev)
-    brick_cell.scatter_(1, row_table[:, :-1], cell_ids)  # guard col dropped
+    brick_cell.scatter_(1, dst, srt)  # guard col dropped
     brick_cell = brick_cell[:, :capacity]
     bmask = (torch.arange(capacity, device=dev)[None]
              < torch.clamp(n, max=capacity)[:, None])
+    table = torch.where(bmask, brick_cell, n_cells).contiguous()
     cx = brick_cell // (gy * gz)
     cy = (brick_cell // gz) % gy
     cz = brick_cell % gz
@@ -113,7 +129,7 @@ def _grid_level(cells: torch.Tensor, capacity: int,
           & bmask[..., None])
     ncell = (nbc[..., 0] * gy + nbc[..., 1]) * gz + nbc[..., 2]
     ncell = torch.where(ok, ncell, n_cells)
-    nbr = torch.gather(row_table, 1, ncell.reshape(b, -1)).reshape(
+    nbr = _rows_of(table, ncell.reshape(b, -1), n_cells).reshape(
         b, capacity, 27)
 
     lvl = BrickLevel(
@@ -121,7 +137,7 @@ def _grid_level(cells: torch.Tensor, capacity: int,
         occ=torch.zeros((b, capacity) + tuple(bshape), dtype=torch.bool,
                         device=dev),
         nbr=nbr.int())
-    return _GridLevel(level=lvl, row_table=row_table, gdims=gdims, bias=bias)
+    return _GridLevel(level=lvl, table=table, gdims=gdims, bias=bias)
 
 
 def _cells_of(bcoords: torch.Tensor, valid: torch.Tensor,
@@ -161,7 +177,7 @@ def _build_batched(coords: torch.Tensor, mask: torch.Tensor,
                                   coords[..., 2] >> sz], dim=-1)
             cells = _cells_of(bcoord, mask, gdims, bias)
             gl = _grid_level(cells, cap, gdims, bias, bshape)
-            row0 = torch.gather(gl.row_table, 1, cells)
+            row0 = _rows_of(gl.table, cells, _n_cells(gdims))
             kept = mask & (row0 < cap)
             dropped.append((mask & (row0 >= cap)).sum(1))
             w0 = (((coords[..., 0] & (bx - 1)) * by
@@ -177,7 +193,7 @@ def _build_batched(coords: torch.Tensor, mask: torch.Tensor,
             fine_gl, fine = grids[-1], levels[-1]
             fcells = _cells_of(fine.coords >> 1, fine.mask, gdims, bias)
             gl = _grid_level(fcells, cap, gdims, bias, bshape)
-            pmap = torch.gather(gl.row_table, 1, fcells)
+            pmap = _rows_of(gl.table, fcells, _n_cells(gdims))
             parent_maps.append(pmap.int())
             dropped.append((fine.mask & (pmap >= cap)).sum(1))
             octants.append(torch.where(fine.mask[..., None], fine.coords & 1,
@@ -186,8 +202,8 @@ def _build_batched(coords: torch.Tensor, mask: torch.Tensor,
             child = gl.level.coords[:, :, None, :].long() * 2 + offs8
             ccells = _cells_of(child, gl.level.mask[:, :, None],
                                fine_gl.gdims, fine_gl.bias)
-            gmap = torch.gather(fine_gl.row_table, 1,
-                                ccells.reshape(b, -1)).reshape(b, cap, 8)
+            gmap = _rows_of(fine_gl.table, ccells.reshape(b, -1),
+                            _n_cells(fine_gl.gdims)).reshape(b, cap, 8)
             group_maps.append(gmap.int())
             # coarse voxel occupancy: any of its 8 fine voxels occupied
             occ_pad = torch.cat(
@@ -219,9 +235,14 @@ def build_brick_topology(coords: torch.Tensor, mask: torch.Tensor,
 
     ``grid_bits``: level-0 voxel extent is ±2^(grid_bits+1) on every axis;
     voxels outside are dropped and counted in ``dropped[..., 0]`` with
-    capacity overflow. Default brick capacities: M//8 at level 0, halving
-    per level with a floor of 32.
+    capacity overflow (``grid_bits_for`` gives the grid that holds them
+    all); the grid's cell ids must fit int32. Default brick capacities:
+    M//8 at level 0, halving per level with a floor of 32.
     """
+    bshape = tuple(int(s) for s in brick_shape)
+    if (1 << (grid_bits + 2)) ** 3 // int(np.prod(bshape)) > 2 ** 31:
+        raise ValueError(f"grid_bits {grid_bits} at bricks {bshape}: the "
+                         "grid's cell ids do not fit int32")
     batched = coords.dim() == 3
     if not batched:
         coords, mask = coords[None], mask[None]
@@ -230,8 +251,7 @@ def build_brick_topology(coords: torch.Tensor, mask: torch.Tensor,
         b0 = max(m // 8, 32)
         brick_capacities = tuple(max(b0 >> l, 32) for l in range(num_levels))
     topo = _build_batched(coords, mask.bool(), num_levels, grid_bits,
-                          tuple(int(c) for c in brick_capacities),
-                          tuple(int(s) for s in brick_shape))
+                          tuple(int(c) for c in brick_capacities), bshape)
     if batched:
         return topo
     strip = lambda t: t[0]
@@ -241,6 +261,21 @@ def build_brick_topology(coords: torch.Tensor, mask: torch.Tensor,
         group_maps=tuple(map(strip, topo.group_maps)),
         parent_maps=tuple(map(strip, topo.parent_maps)),
         octants=tuple(map(strip, topo.octants)), dropped=strip(topo.dropped))
+
+
+def grid_bits_for(coords: torch.Tensor, mask: torch.Tensor,
+                  floor: int = 5) -> int:
+    """The smallest ``grid_bits`` >= ``floor`` whose extent,
+    [-2^(grid_bits+1), 2^(grid_bits+1)) voxels on every axis, holds every
+    masked voxel of ``coords`` (one read of two numbers from the device).
+    Where the floor's extent holds them, the topology equals the floor's;
+    a larger grid only numbers the same bricks' cells further apart."""
+    c = torch.where(mask.bool()[..., None], coords, 0)
+    if c.numel() == 0:
+        return floor
+    lo, hi = (int(v) for v in torch.aminmax(c))
+    span = max(-lo, hi + 1, 1)
+    return max(floor, (span - 1).bit_length() - 1)
 
 
 def fold_topology(topo: BrickTopology) -> BrickTopology:

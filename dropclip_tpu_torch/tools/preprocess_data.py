@@ -9,15 +9,26 @@ their text embedding, and write the processed scene. Every stage runs on
 the card (the ViT-L teacher through K3, K6 and K7) unless the caller
 passes ``device="cpu"``.
 
+The raw readers: ``-ds Blender`` reads MV-TOD renders
+(``data/blender.py``) into the same pipeline; ``-ds REGRAD``
+(``process_regrad_scene``) cleans each view's cloud against its 2D
+segmentation, samples the teacher's patch features at every point's
+pixel, averages per-object class-token features over the views where the
+object is present, voxel-pools the cloud and writes the REGRAD schema
+(``scene_io.write_regrad_scene``).
+
 Usage (``--clip-checkpoint`` a CLIP checkpoint file, OpenAI or
 HuggingFace layout; without it the teacher's weights are drawn from a
-seed):
+seed; ``--format npz`` writes numpy archives of the same schema):
 
+  python -m dropclip_tpu_torch.tools.preprocess_data -ds Blender \\
+      -r RAW_ROOT -c OUT_DIR [--split train --start 0 --end 100]
+  python -m dropclip_tpu_torch.tools.preprocess_data -ds REGRAD \\
+      -r RAW_ROOT -c OUT_DIR [--reader-config configs/REGRAD.yaml]
   python -m dropclip_tpu_torch.tools.preprocess_data -ds Synthetic \\
       -c OUT_DIR --n-scenes 4 [--clip-checkpoint CLIP.pt] [--device cpu]
 
-Waiting for a later slice: ``-ds Blender`` and ``-ds REGRAD`` (their raw
-readers) and ``--n-devices`` (one scene per card).
+``--n-devices`` above 1 (one scene per card) is not ported.
 """
 
 from __future__ import annotations
@@ -255,6 +266,224 @@ def build_extractor(args, device=None, seed: int = 0) -> ClipExtractor:
                          img_resize=(336, 448), batch_size=args.batch_size)
 
 
+def _intrinsic_matrix(ci: Dict) -> np.ndarray:
+    return np.array([[ci["fx"], 0, ci["cx"]], [0, ci["fy"], ci["cy"]],
+                     [0, 0, 1]], np.float32)
+
+
+def run_blender(args, write: Callable = scene_io.write_scene) -> list:
+    """MV-TOD ingest of scenes ``[args.start, args.end)`` (``--end`` is
+    EXCLUSIVE, -1 = all) of ``args.root``'s split: a loader thread reads
+    and stages scene i+1 while scene i runs on the card, and the writer
+    thread (``SceneWriter``) fetches and writes scene i-1 through
+    ``write``. Existing outputs are skipped. Returns the writer's
+    (path, stats) per scene."""
+    from ..data.blender import BlenderDataset
+
+    dataset = BlenderDataset(args.root, models_root=args.models_root,
+                             split=args.split)
+    extractor = build_extractor(args, device=args.device)
+    os.makedirs(args.out, exist_ok=True)
+    end = args.end if args.end >= 0 else len(dataset.scene_ids)
+
+    def load_one(sid: int):
+        scene_id = f"{sid:06d}"
+        out_path = os.path.join(args.out, args.split, scene_id,
+                                f"{scene_id}.{args.format}")
+        if os.path.isfile(out_path):
+            print(f"skip {scene_id}: exists", flush=True)
+            return None
+        if scene_id not in dataset.scene_ids:
+            return None
+        scene = dataset[sid]
+        segs, _ = BlenderDataset.obtain_seg_info(scene)
+        views = list(scene["views"].values())
+        kw = dict(
+            images=np.stack([v["rgb"] for v in views]),
+            depths=np.stack([v["depth"] for v in views]),
+            segs=np.stack(segs),
+            poses=np.stack([np.asarray(v["camera"]["world_matrix"],
+                                       np.float32) for v in views]),
+            K=_intrinsic_matrix(scene["camera_intrinsic"]),
+            obj_info=scene["objects_info"], out_path=out_path,
+            voxel_size=args.voxel_size * scene["world_scale"])
+        kw["staged"] = stage_scene(kw["images"], kw["depths"], kw["segs"],
+                                   kw["poses"], kw["K"],
+                                   device=extractor.device)
+        return scene_id, kw
+
+    with ThreadPoolExecutor(1) as loader, SceneWriter() as writer:
+        pending = None  # (scene_id, kwargs) read and staged, ready to run
+        for sid in range(args.start, end + 1):
+            nxt = loader.submit(load_one, sid) if sid < end else None
+            if pending is not None:
+                scene_id, kw = pending
+                stats = process_scene(extractor=extractor, writer=writer,
+                                      write=write, **kw)
+                print(f"{scene_id}: {stats}", flush=True)
+            pending = nxt.result() if nxt is not None else None
+    return writer.results
+
+
+def _pixels(xyz: np.ndarray, pose: np.ndarray, K: np.ndarray,
+            hw: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """World points -> (row, column) pixels of one REGRAD view: world->cam
+    in float32, the REGRAD camera flip (reference projections.py:89-92),
+    pinhole with int truncation, clipped to the image."""
+    from ..geom.transforms import transform_pointcloud_to_camera_frame
+
+    cam = transform_pointcloud_to_camera_frame(
+        torch.as_tensor(xyz, dtype=torch.float32),
+        torch.as_tensor(pose, dtype=torch.float32)).numpy()
+    cam[:, 1:3] *= -1
+    uvw = cam @ K.T
+    z = np.where(np.abs(uvw[:, 2]) < 1e-9, 1e-9, uvw[:, 2])
+    uv = uvw[:, :2] / z[:, None]
+    return (np.clip(uv[:, 1].astype(int), 0, hw[0] - 1),
+            np.clip(uv[:, 0].astype(int), 0, hw[1] - 1))
+
+
+@torch.no_grad()
+def process_regrad_scene(scene: Dict, camera_poses: Dict, K: np.ndarray,
+                         extractor: ClipExtractor, out_path: str,
+                         voxel_size: float, max_objects: int = 32,
+                         write: Callable = scene_io.write_regrad_scene
+                         ) -> Dict:
+    """One REGRAD scene: per-view 2D/3D consistency cleanup, patch-CLIP
+    pixel fusion, per-object obj-prior fusion, the processed write
+    (reference tools/preprocess_data.py:431-607 + projections.py:151-241;
+    schema of save_multiview_dataset_h5py :40-58, ``write(out_path,
+    **arrays)``, ``scene_io.write_regrad_scene`` by default).
+
+    Cleanup (reference :476-546): drop 3D points whose projection lands
+    outside their object's 2D mask. Patch fusion: per-view ViT patch
+    features (the extractor's device) sampled at each point's pixel,
+    voxel-mean over views. Object fusion: per-object mean of the per-view
+    obj-prior features over the views where the object is present (the
+    JAX package's choice; the reference means over all views)."""
+    from ..geom.cleanup import voxel_pool
+
+    t0 = time.time()
+    h = w = None
+    imgs, segs, pcs, rgbs, labs, pixs = [], [], [], [], [], []
+    for v, e in sorted(scene["views"].items()):
+        if not e.get("valid"):
+            continue
+        img, seg = e["image"], e["segm2d"]
+        xyz, rgb, lab = e["pc_xyz"], e["pc_rgb"], e["pc_label"]
+        h, w = img.shape[:2]
+        ys, xs = _pixels(xyz, camera_poses[v], K, (h, w))
+        keep = np.zeros(len(xyz), bool)
+        for obj in np.unique(seg)[1:] if seg.min() == 0 else np.unique(seg):
+            m3 = lab == obj
+            keep[m3] = seg[ys[m3], xs[m3]] == obj
+        if not keep.any():
+            continue
+        imgs.append(img)
+        segs.append(seg)
+        pcs.append(xyz[keep])
+        rgbs.append(rgb[keep])
+        labs.append(lab[keep])
+        pixs.append((ys[keep], xs[keep]))
+    if not pcs:
+        return {"points": 0, "skipped": True}
+    t_clean = time.time() - t0
+
+    # per-view dense patch features, sampled at each kept point's pixel
+    t0 = time.time()
+    extractor.set_mode("patch")
+    patch = extractor.extract(np.stack(imgs))  # (V, ph, pw, C)
+    ph, pw = patch.shape[1:3]
+    feats = []
+    for i, (ys, xs) in enumerate(pixs):
+        at = lambda a: torch.from_numpy(a).to(patch.device)
+        f = patch[i, at(ys * ph // h), at(xs * pw // w)].float()
+        feats.append((f / f.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+                      ).cpu().numpy())
+
+    # per-(view, object) obj-prior features
+    obj_ids = np.unique(np.concatenate(labs)).astype(np.int32)
+    if len(obj_ids) > max_objects:
+        raise ValueError(f"{len(obj_ids)} objects > max_objects "
+                         f"{max_objects}")
+    seg_stack = np.stack(segs).astype(np.int32)
+    extractor.set_mode("cls")
+    obj_feats, present = extractor.extract_obj_prior(
+        np.stack(imgs), seg_stack, obj_ids=obj_ids, present_hint=seg_stack)
+    obj_feats = obj_feats.float().cpu().numpy()  # (V, K, C)
+    present = present.cpu().numpy()
+    denom = np.maximum(present.sum(axis=0), 1)[:, None]
+    per_obj = (obj_feats * present[..., None]).sum(axis=0) / denom
+    t_teacher = time.time() - t0
+
+    # aggregate + voxel pool (the host voxelizer)
+    t0 = time.time()
+    xyz_v, pooled, lab_v = voxel_pool(
+        np.concatenate(pcs),
+        {"rgb": np.concatenate(rgbs), "mv": np.concatenate(feats)},
+        np.concatenate(labs), voxel_size)
+    t_fuse = time.time() - t0
+
+    write(out_path, xyz=xyz_v, rgb=pooled["rgb"], label=lab_v,
+          patch=pooled["mv"], per_obj=per_obj, obj_ids=obj_ids)
+    return {"points": len(xyz_v), "objects": len(obj_ids),
+            "views": len(pcs), "t_clean": t_clean, "t_teacher": t_teacher,
+            "t_fuse": t_fuse}
+
+
+def regrad_intrinsics(camera_info: Dict) -> np.ndarray:
+    """The camera file's intrinsics (a dict of fx, fy, cx, cy or a 3x3
+    matrix), else REGRAD's default, which centres 840x840 images."""
+    ci = camera_info.get("intrinsic")
+    if ci is None:
+        return np.array([[1120.0, 0, 420], [0, 1120.0, 420], [0, 0, 1]],
+                        np.float32)
+    if isinstance(ci, dict):
+        return _intrinsic_matrix(ci)
+    return _intrinsic_matrix({"fx": ci[0][0], "fy": ci[1][1],
+                              "cx": ci[0][2], "cy": ci[1][2]})
+
+
+def run_regrad(args, write: Callable = scene_io.write_regrad_scene
+               ) -> list:
+    """REGRAD offline ingest (reference preprocess_regrad_aggr_multiview,
+    tools/preprocess_data.py:431-607) of scenes ``[args.start,
+    args.end)``: raw scenes -> processed scenes, existing outputs and
+    unreadable scenes skipped. Returns (scene id, stats) per scene run."""
+    from ..core.config import load_cfg, merge_cfg_from_list
+    from ..data.regrad import RegradDataset
+
+    cfg = load_cfg(args.reader_config)
+    if args.root:
+        cfg = merge_cfg_from_list(cfg, ["root_dir", args.root])
+    cfg.reference_frame = "world"  # reference :436
+    ds = RegradDataset(cfg, args.split)
+    K = regrad_intrinsics(ds.camera_info)
+    poses = {v: np.asarray(ds.camera_info["extrinsic"][v])
+             for v in range(1, ds.nviews + 1)}
+    extractor = build_extractor(args, device=args.device)
+
+    results = []
+    end = len(ds) if args.end < 0 else min(args.end, len(ds))
+    for i in range(args.start, end):
+        sid = ds.idx_to_scene_id(i)
+        out_path = os.path.join(args.out, args.split, f"{sid}.{args.format}")
+        if os.path.exists(out_path):  # idempotent resume (reference :192)
+            print(f"{sid}: exists, skipping", flush=True)
+            continue
+        try:
+            scene = ds[i]
+        except Exception as exc:  # noqa: BLE001 (reference :201-205 skips
+            # scenes it cannot read)
+            print(f"{sid}: SKIP ({exc!r})", flush=True)
+            continue
+        stats = process_regrad_scene(scene, poses, K, extractor, out_path,
+                                     voxel_size=args.voxel_size, write=write)
+        print(f"{sid}: {stats}", flush=True)
+        results.append((sid, stats))
+    return results
+
+
 def run_synthetic(args) -> None:
     """Full-pipeline smoke run on procedurally generated raw scenes."""
     from ..data.synthetic import make_raw_scene
@@ -263,7 +492,7 @@ def run_synthetic(args) -> None:
     for sid in range(args.n_scenes):
         scene_id = f"{sid:06d}"
         out_path = os.path.join(args.out, args.split, scene_id,
-                                f"{scene_id}.h5py")
+                                f"{scene_id}.{args.format}")
         # per-scene rng: the same scenes as the JAX package's run
         raw = make_raw_scene(np.random.default_rng(sid), n_objects=3,
                              n_views=args.n_views)
@@ -279,8 +508,17 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser("dropclip_tpu_torch offline ingest")
     p.add_argument("-ds", "--dataset",
                    choices=["Blender", "REGRAD", "Synthetic"], required=True)
+    p.add_argument("--reader-config", default="configs/REGRAD.yaml",
+                   help="raw-reader config for -ds REGRAD")
+    p.add_argument("-r", "--root", default=None, help="raw dataset root")
     p.add_argument("-c", "--out", required=True, help="processed output dir")
+    p.add_argument("--models-root", default=None)
     p.add_argument("--split", default="train")
+    p.add_argument("--start", type=int, default=0)
+    p.add_argument("--end", type=int, default=-1,
+                   help="end scene index, EXCLUSIVE (-1 = all)")
+    p.add_argument("--format", choices=["h5py", "npz"], default="h5py",
+                   help="processed file format (npz where h5py is absent)")
     p.add_argument("--voxel-size", type=float, default=0.02)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--clip-model", default="ViT-L/14@336px")
@@ -290,13 +528,24 @@ def main(argv=None) -> None:
     p.add_argument("--crop-expansion-ratio", type=float, default=0.15)
     p.add_argument("--n-scenes", type=int, default=4, help="synthetic only")
     p.add_argument("--n-views", type=int, default=4, help="synthetic only")
+    p.add_argument("--n-devices", type=int, default=1,
+                   help="cards to ingest on concurrently (only 1 is ported)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
-    if args.dataset != "Synthetic":
-        p.error(f"-ds {args.dataset} is not ported yet (its raw reader "
-                "comes with a later slice); use -ds Synthetic")
-    run_synthetic(args)
+    if args.n_devices > 1:
+        raise NotImplementedError(
+            "--n-devices > 1 is not ported yet: it waits for its ROADMAP "
+            "queue 1 item 6 entry, --n-devices and the bench's "
+            "ingest_scaling mode")
+    if args.dataset == "Blender":
+        if not args.root:
+            p.error("-r/--root is required for -ds Blender")
+        run_blender(args)
+    elif args.dataset == "REGRAD":
+        run_regrad(args)
+    else:
+        run_synthetic(args)
 
 
 if __name__ == "__main__":

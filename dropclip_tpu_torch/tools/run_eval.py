@@ -14,8 +14,12 @@ Usage:
   python -m dropclip_tpu_torch.tools.run_eval -ds Synthetic \\
       --clip-model tiny-test [--clip-checkpoint CLIP.pt] [--device cpu] \\
       --use_obj_prior 1 --use_similarity 1 --use_sim_kernel max ...
+  python -m dropclip_tpu_torch.tools.run_eval -ds Blender -r RAW_ROOT \\
+      [--split train --start 0 --end 9] ...
 
-``-ds Blender`` waits for the port of the Blender reader.
+``-ds Blender`` reads raw MV-TOD scenes ``[--start, --end]`` (``--end``
+INCLUSIVE here, -1 = the last, as in the JAX tool; ``preprocess_data``'s
+``--end`` is exclusive).
 """
 
 from __future__ import annotations
@@ -214,6 +218,36 @@ def eval_scene(raw: Dict, extractor, args) -> Dict[str, float]:
             "n_queries": len(preds)}
 
 
+def blender_scenes(args) -> List[Dict]:
+    """Raw MV-TOD scenes ``[args.start, args.end]`` of ``args.root`` as
+    ``eval_scene`` inputs, keyed by their real scene ids (stable
+    ``--cache-dir`` entries across windows); sets ``args._cls_list`` to
+    the dataset's label map for ``--sim_negatives all``."""
+    from ..data.blender import BlenderDataset
+    from .preprocess_data import _intrinsic_matrix
+
+    ds = BlenderDataset(args.root, models_root=args.models_root,
+                        split=args.split)
+    end = args.end if args.end >= 0 else len(ds.scene_ids) - 1
+    scenes = []
+    for sid in range(args.start, end + 1):
+        scene = ds[sid]
+        segs, _ = BlenderDataset.obtain_seg_info(scene)
+        views = list(scene["views"].values())
+        scenes.append({
+            "scene_id": str(ds.scene_ids[sid]),
+            "images": np.stack([v["rgb"] for v in views]),
+            "depths": np.stack([v["depth"] for v in views]),
+            "segs": np.stack(segs),
+            "poses": np.stack([np.asarray(v["camera"]["world_matrix"],
+                                          np.float32) for v in views]),
+            "K": _intrinsic_matrix(scene["camera_intrinsic"]),
+            "objects_info": scene["objects_info"],
+        })
+    args._cls_list = sorted({str(n) for n in ds.id_to_name.values()})
+    return scenes
+
+
 def main(argv=None) -> Dict:
     """Run the ablation; returns the summary it prints."""
     p = argparse.ArgumentParser("dropclip_tpu_torch fusion ablation eval")
@@ -258,24 +292,25 @@ def main(argv=None) -> Dict:
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
-    if args.dataset == "Blender":
-        raise NotImplementedError(
-            "-ds Blender is not ported yet: it waits for its ROADMAP queue 1 "
-            "item 6 entry, the Blender and REGRAD readers (data/blender.py)")
+    if args.dataset == "Blender" and not args.root:
+        p.error("-r/--root is required for -ds Blender")
 
     extractor = build_extractor(args, device=args.device)
-    from ..data.synthetic import make_raw_scene
+    if args.dataset == "Synthetic":
+        from ..data.synthetic import make_raw_scene
 
-    rng = np.random.default_rng(0)
-    args.cloud_capacity = min(args.cloud_capacity, 4096)
-    scenes: List[Dict] = [make_raw_scene(rng, n_objects=3, n_views=4)
-                          for _ in range(args.n_scenes)]
-    # the dataset-wide class vocabulary for --sim_negatives all: for
-    # Synthetic the generated scenes are the dataset
-    args._cls_list = sorted({
-        str(v["cls_name"]) for s in scenes
-        for v in s["objects_info"].values()
-        if isinstance(v, dict) and "cls_name" in v})
+        rng = np.random.default_rng(0)
+        args.cloud_capacity = min(args.cloud_capacity, 4096)
+        scenes: List[Dict] = [make_raw_scene(rng, n_objects=3, n_views=4)
+                              for _ in range(args.n_scenes)]
+        # the dataset-wide class vocabulary for --sim_negatives all: for
+        # Synthetic the generated scenes are the dataset
+        args._cls_list = sorted({
+            str(v["cls_name"]) for s in scenes
+            for v in s["objects_info"].values()
+            if isinstance(v, dict) and "cls_name" in v})
+    else:
+        scenes = blender_scenes(args)
 
     results = []
     for i, raw in enumerate(scenes):

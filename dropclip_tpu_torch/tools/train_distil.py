@@ -219,9 +219,11 @@ def main(argv=None) -> Optional[str]:
     np.random.seed(seed)
 
     bsz = int(cfg.batch_size or 8)
-    train_ds, val_ds, collate = build_dataset_for(cfg)
+    train_ds, val_ds, collate = build_dataset_for(cfg, device)
     if len(train_ds) == 0:
-        raise ValueError(f"no scenes under {cfg.root_dir}/train")
+        raise ValueError(f"no training scenes for {cfg.dataset} "
+                         f"(root_dir {cfg.root_dir}, processed_dir "
+                         f"{cfg.processed_dir})")
     train_loader = DataLoader(train_ds, bsz, collate, shuffle=True,
                               num_workers=int(cfg.workers or 8), seed=seed)
     val_loader = None
@@ -292,7 +294,7 @@ def main(argv=None) -> Optional[str]:
             logger.warning(
                 "epoch %d: %d voxels/bricks dropped by brick-capacity "
                 "overflow or grid extent: scenes are being truncated; raise "
-                "brick_capacities/grid_bits or re-run the capacity autotune",
+                "brick_capacities or re-run the capacity autotune",
                 epoch, epoch_dropped)
             if wandb_run is not None:
                 wandb_run.log({"train/dropped_voxels": epoch_dropped})

@@ -87,8 +87,8 @@ def main(argv=None) -> dict:
             # a truncated scene silently deflates every metric
             raise RuntimeError(
                 f"{dropped} voxels dropped by brick-capacity/extent "
-                "overflow during validation; raise brick_capacities or "
-                "grid_bits, or pass allow_capacity_overflow True")
+                "overflow during validation; raise brick_capacities, or "
+                "pass allow_capacity_overflow True")
         return out, m["distil_loss"]
 
     cls_list = None

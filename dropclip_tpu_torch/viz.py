@@ -7,8 +7,8 @@ utils/projections.py:100-105, numpy SVD), similarity heatmap coloring,
 ASCII .pcd export (replacing o3d.io.write_point_cloud in
 engine/distil.py:586-603) and PNG grids. matplotlib and PIL are imported
 only inside the functions that use them (the card's machine has
-neither); ``export_grasp_scene`` raises until the grasp modules are
-ported.
+neither). ``export_grasp_scene`` writes a ranked grasp scene with the
+gripper meshes of ``grasp/gripper.py``.
 """
 
 from __future__ import annotations
@@ -157,12 +157,43 @@ def export_grasp_scene(path_prefix: str, xyz: np.ndarray,
                        order: Optional[np.ndarray] = None,
                        top_k: int = 10,
                        gripper_type: str = "franka_panda") -> list:
-    """Language-ranked grasp scene as files (``{prefix}_cloud.pcd`` and
-    the posed gripper meshes as ``{prefix}_grasps.obj`` in the JAX
-    package). It needs ``grasp/gripper.py``, which is not ported."""
-    raise NotImplementedError(
-        "export_grasp_scene is not ported yet: it waits for its ROADMAP "
-        "queue 1 item 7.4, REGRAD and grasp")
+    """Language-ranked grasp scene as files (file-output counterpart of
+    the reference's o3d grasp viewers, utils/viz.py:426-492 and
+    data/regrad.py:334-398): writes ``{prefix}_cloud.pcd`` plus one
+    ``{prefix}_grasps.obj`` containing the posed gripper mesh at each of
+    the top-k grasps as named groups (grasp_000 = best). Returns the
+    written paths.
+
+    ``grasps``: grasp.SceneGrasps; ``order``: best-first indices from
+    grasp.rank_grasps_by_query (defaults to score order).
+    """
+    from .grasp.gripper import make
+
+    written = []
+    cloud_path = f"{path_prefix}_cloud.pcd"
+    save_pcd(cloud_path, xyz, colors)
+    written.append(cloud_path)
+
+    idx = (np.asarray(order) if order is not None
+           else np.argsort(-np.asarray(grasps.scores)))
+    idx = idx[: min(top_k, len(idx))]
+    v, f = make(gripper_type)
+    obj_path = f"{path_prefix}_grasps.obj"
+    os.makedirs(os.path.dirname(obj_path) or ".", exist_ok=True)
+    with open(obj_path, "w") as out:
+        out.write("# dropclip_tpu ranked grasps (grasp_000 = best)\n")
+        base = 0
+        for rank, g in enumerate(idx):
+            pose = np.asarray(grasps.poses[g])
+            vh = np.c_[v, np.ones(len(v))] @ pose.T
+            out.write(f"o grasp_{rank:03d}\n")
+            for p in vh[:, :3]:
+                out.write(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")
+            for tri in f + 1 + base:
+                out.write(f"f {tri[0]} {tri[1]} {tri[2]}\n")
+            base += len(v)
+    written.append(obj_path)
+    return written
 
 
 def heat_colors(x: np.ndarray) -> np.ndarray:

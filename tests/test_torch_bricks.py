@@ -73,6 +73,42 @@ def test_topology_extent_overflow_and_unbatched():
     assert int(tt.dropped[0]) >= 5
 
 
+@pytest.mark.parametrize("bshape", [(4, 4, 2), (2, 2, 2)])
+def test_grid_bits_for_keeps_a_scene_past_the_default_extent(bshape):
+    """A scene moved past the default grid's +-64 voxels (by a multiple of
+    every level's brick, so the bricks stay the same) loses voxels at
+    grid_bits 5; at ``grid_bits_for``'s grid it keeps them all, and its
+    topology is the unmoved scene's (JAX's) with the coords moved."""
+    coords, mask = _scenes(4, batch=2)
+    caps = tb.autotune_brick_capacities(coords, mask, brick_shape=bshape)
+    jt, tt = _topos(coords, mask, caps, bshape)
+    _assert_topo_equal(jt, tt)
+    assert tb.grid_bits_for(torch.as_tensor(coords),
+                            torch.as_tensor(mask)) == 5
+    shift = np.array([192, -192, 128])
+    far_c, far_m = torch.as_tensor(coords + shift), torch.as_tensor(mask)
+    bits = tb.grid_bits_for(far_c, far_m)
+    assert bits == 7
+    lost = tb.build_brick_topology(far_c, far_m, brick_capacities=caps,
+                                   brick_shape=bshape)
+    assert int(lost.dropped[:, 0].sum()) > 0
+    far = tb.build_brick_topology(far_c, far_m, grid_bits=bits,
+                                  brick_capacities=caps, brick_shape=bshape)
+    assert int(far.dropped.sum()) == 0
+    brick = shift // np.array(bshape)
+    for l, (a, b) in enumerate(zip(tt.levels, far.levels)):
+        for f in ("mask", "occ", "nbr"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), (l, f)
+        moved = torch.where(a.mask[..., None],
+                            a.coords + torch.as_tensor(brick >> l).int(), 0)
+        assert torch.equal(moved, b.coords), l
+    for f in ("point_row", "point_within"):
+        assert torch.equal(getattr(tt, f), getattr(far, f)), f
+    for f in ("group_maps", "parent_maps", "octants"):
+        for a, b in zip(getattr(tt, f), getattr(far, f)):
+            assert torch.equal(a, b), f
+
+
 def test_fold_topology_parity():
     coords, mask = _scenes(2, batch=3)
     caps = tb.autotune_brick_capacities(coords, mask, brick_shape=(4, 4, 2))

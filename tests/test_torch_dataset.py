@@ -159,15 +159,26 @@ def test_queries_match_jax():
         queries.prepare_queries({}, "nope")
 
 
-def test_dataset_dispatch_and_unported_options(roots):
-    """build_dataset_for gives (train, val, collate); REGRAD and
-    use_view_clip raise, naming their ROADMAP items."""
+def test_dataset_dispatch_and_unported_options(roots, monkeypatch):
+    """build_dataset_for gives (train, val, collate): the MV-TOD dataset,
+    or the REGRAD dataset for a REGRAD config; use_view_clip's teacher is
+    built at first use, on the card unless the caller asks for the CPU
+    (tests/test_torch_blender.py holds its features)."""
+    from dropclip_tpu_torch.data.dataset_regrad import RegradDistilDataset
+
     _, pc = _cfgs(roots["npz"])
     train, val, collate = build_dataset_for(pc)
     assert len(train) == len(val) == 3 and collate is MVTODDataset.collate
     pc.evaluate = False
     assert build_dataset_for(pc)[1] is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_dataset_for(CfgNode(dict(pc, dataset="REGRAD")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MVTODDataset(CfgNode(dict(pc, use_view_clip=True)), "train")
+    rtrain, rval, rcollate = build_dataset_for(CfgNode(dict(
+        pc, dataset="DistilREGRAD", processed_dir=roots["npz"],
+        evaluate=True, val_split="test")))
+    assert isinstance(rtrain, RegradDistilDataset) and \
+        rval.split == "test" and rcollate is RegradDistilDataset.collate
+    vc = MVTODDataset(CfgNode(dict(pc, use_view_clip=True, use_k_views=0,
+                                   use_view_ids="0")), "train")
+    assert vc.raw_root == roots["npz"] and vc._vc_extractor is None
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vc._vc_get_extractor()

@@ -201,7 +201,8 @@ def test_run_eval_scene_matches_jax(work, use_obj_prior, monkeypatch):
 def test_run_eval_cli(work, monkeypatch, capsys):
     """Both fusion modes through main on a checkpoint file; the teacher
     cache serves a second run without extraction; viz dumps and the
-    results file; -ds Blender refuses."""
+    results file; -ds Blender without -r refuses (tests/test_torch_blender.py
+    runs it)."""
     base = ["-ds", "Synthetic", "--n-scenes", "1", "--clip-model",
             "tiny-test", "--clip-checkpoint", work.clip, "--max_objects",
             "8", "--voxel_size", "0.02", "--device", "cpu"]
@@ -228,15 +229,16 @@ def test_run_eval_cli(work, monkeypatch, capsys):
     pcds = [f for f in os.listdir(vdir) if f.endswith(".pcd")]
     assert pcds and load_pcd(os.path.join(vdir, pcds[0]))[0].shape[1] == 3
     capsys.readouterr()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit):  # -ds Blender needs its raw root
         run_eval.main(["-ds", "Blender", "--device", "cpu"])
 
 
 def test_make_visualizations(work, monkeypatch, capsys):
     """Without a checkpoint the dataset dumps (rgb, labels, PCA of the
     targets) are byte-equal to the JAX tool's; with the trainer's
-    checkpoint the student's PCA and the panels follow and read back;
-    viz_query refuses."""
+    checkpoint the student's PCA and the panels follow and read back, and
+    with viz_query the query heatmap, panels and ranked grasp scene
+    (tests/test_torch_grasp.py holds them against the JAX tool's steps)."""
     from dropclip_tpu.tools import make_visualizations as jviz
 
     jdir, tdir = str(work.tmp / "jviz"), str(work.tmp / "tviz")
@@ -259,6 +261,12 @@ def test_make_visualizations(work, monkeypatch, capsys):
     for n in ("test_0000_student_pca.pcd", "test_0000_panels.pcd"):
         xyz, col = load_pcd(os.path.join(tdir, n))
         assert len(xyz) and np.isfinite(xyz).all() and col is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP.*7.4"):
-        make_visualizations.main(["--config", YAML, "--device", "cpu",
-                                  "--opts", *common, "viz_query", "a mug"])
+    make_visualizations.main(["--config", YAML, "--device", "cpu",
+                              "--opts", *common, "viz_dir", tdir, "resume",
+                              work.ckpt, "viz_query", "a mug"])
+    for n in ("test_0000_query_heatmap.pcd", "test_0001_query_pred.pcd",
+              "test_0000_query_cloud.pcd"):
+        xyz, col = load_pcd(os.path.join(tdir, n))
+        assert len(xyz) and col is not None
+    with open(os.path.join(tdir, "test_0001_query_grasps.obj")) as f:
+        assert f.read().count("o grasp_") == 10

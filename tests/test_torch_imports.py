@@ -5,8 +5,10 @@ hypothesis; matplotlib and PIL are imported only inside the viz functions
 that draw, cv2 only inside the image readers), and its entry points (serve pipeline on either engine and
 from a checkpoint, pillar topology, text encoder, CLIP, ingest staging,
 the trainer, the eval and viz CLIs, the DINO teachers and the extraction
-CLIs) refuse to run without a card unless asked for the CPU; the
-trainer's data path reads .npz scenes with no h5py."""
+CLIs, the raw-data ingest and the cleanup filters) refuse to run without a
+card unless asked for the CPU; the trainer's data paths (MV-TOD and
+REGRAD) read .npz scenes with no h5py, and the RLE codec runs without
+cv2."""
 
 import os
 import subprocess
@@ -31,7 +33,10 @@ assert not leaked, leaked
 for m in ("teachers.convert", "distill.evaluate", "viz",
           "tools.validate_blender", "tools.validate_upper_bound",
           "tools.run_eval", "tools.make_visualizations", "teachers.dinov2",
-          "teachers.dino_v1", "tools.dino_extract", "tools.clip_extract"):
+          "teachers.dino_v1", "tools.dino_extract", "tools.clip_extract",
+          "native", "data.rle", "data.blender", "data.regrad",
+          "data.dataset_regrad", "geom.cleanup", "geom.knn", "grasp",
+          "grasp.grasps", "grasp.gripper"):
     assert "dropclip_tpu_torch." + m in mods, m
 import torch
 torch.cuda.is_available = lambda: False
@@ -51,9 +56,15 @@ from dropclip_tpu_torch.teachers.convert import build_clip_from
 from dropclip_tpu_torch.teachers.dinov2 import build_dinov2
 from dropclip_tpu_torch.teachers.dino_v1 import ViTExtractor, build_dino_v1
 from dropclip_tpu_torch.tools import clip_extract, dino_extract
+from dropclip_tpu_torch.tools import preprocess_data
+from dropclip_tpu_torch.geom import cleanup
 import numpy as np
+import tempfile
 z = np.zeros((1, 4, 4), np.float32)
 y = "configs/DistilBlender.yaml"
+empty_raw = tempfile.mkdtemp()
+import os
+os.makedirs(os.path.join(empty_raw, "train"))
 for make in (lambda: GroundingPipeline(cfg), lambda: GroundingPipeline(pcfg),
              lambda: GroundingPipeline.from_checkpoint(y, "nowhere"),
              lambda: validate_blender.main(["--config", y]),
@@ -76,6 +87,11 @@ for make in (lambda: GroundingPipeline(cfg), lambda: GroundingPipeline(pcfg),
                                         "--clip-model", "tiny-test"]),
              lambda: stage_scene(z[..., None].repeat(3, -1), z, z, np.eye(4),
                                  np.eye(3)),
+             lambda: preprocess_data.main(["-ds", "Blender", "-r", empty_raw,
+                                           "-c", empty_raw]),
+             lambda: cleanup.plane_removal(np.eye(3)),
+             lambda: cleanup.remove_stat_outlier(np.eye(3)),
+             lambda: cleanup.pc_outlier_removal(np.eye(3)),
              lambda: train_main(["--config", "configs/DistilBlender.yaml"])):
     try:
         make()
@@ -100,6 +116,21 @@ with tempfile.TemporaryDirectory() as tmp:
     dcfg.update(root_dir=tmp, voxel_capacity=256, voxel_size=0.02)
     train, val, collate = build_dataset_for(dcfg)
     assert collate([train[0], val[0]])["coords"].shape == (2, 256, 3)
+from dropclip_tpu_torch.data import rle, scene_io
+m = (np.arange(48 * 64).reshape(48, 64) % 7 == 0).astype(np.uint8)
+assert (rle.decode_rle(rle.encode_rle(m)) == m).all()
+with tempfile.TemporaryDirectory() as tmp:
+    f = np.ones((40, 3), np.float32) * np.arange(40)[:, None] / 40
+    lab = np.arange(40) % 2 + 1
+    for split in ("train", "seen_val"):
+        scene_io.write_regrad_scene(
+            os.path.join(tmp, split, "s1.npz"), f, f, lab,
+            np.ones((40, 8), np.float32), np.ones((2, 8), np.float32),
+            np.array([1, 2]))
+    rcfg = load_cfg("configs/DistilREGRAD.yaml")
+    rcfg.update(processed_dir=tmp, voxel_capacity=64)
+    train, val, collate = build_dataset_for(rcfg)
+    assert collate([train[0], val[0]])["targets"].shape == (2, 64, 8)
 print("OK", len(mods))
 """
 
@@ -109,7 +140,7 @@ def test_imports_without_jax_yaml_regex_triton():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 65  # every module of the package was imported
+    assert n >= 75  # every module of the package was imported
 
 
 def test_no_forbidden_imports_in_sources():

@@ -160,8 +160,9 @@ def test_query_embeddings_match_jax(extractors):
 
 
 def test_cli_synthetic_on_cpu(tmp_path, capsys):
-    """``-ds Synthetic --device cpu`` writes one readable scene; the
-    unported readers are refused."""
+    """``-ds Synthetic --device cpu`` writes one readable scene; ``-ds
+    Blender`` without its raw root is refused (tests/test_torch_blender.py
+    runs it)."""
     tpre.main(["-ds", "Synthetic", "-c", str(tmp_path), "--n-scenes", "1",
                "--clip-model", "tiny-test", "--voxel-size", "0.01",
                "--device", "cpu"])

@@ -2,7 +2,9 @@
 the card: K1 (``kernels/brick_conv3.py``, CUDA C++), K2
 (``kernels/pillar_conv3.py``, CUDA C++), K3, K4 and K5
 (``ops/attention.py`` over ``csrc/attention.cu``, CUDA C++), and K6 and K7
-(``ops/layernorm.py``, Triton).
+(``ops/layernorm.py``, Triton); and the raw-data slice's torch ops on the
+card against their CPU results (``grasp.rank_grasps_by_query``,
+``geom.knn.nearest_neighbor_device``).
 
 Marked ``cuda``: without a card every test skips. This file imports
 neither jax nor the JAX package, so it also runs on the card's machine,
@@ -1059,3 +1061,52 @@ def test_k4_at_dinov2_518_matches_plain(cuda):
     torch.cuda.synchronize()
     assert att.oneshot_attention.launches == n4 + 1
     _assert_attention_close(got, ref)
+
+
+def test_rank_grasps_by_query_card_matches_cpu(cuda):
+    """The language-ranked grasp scores on the card within 1e-5 of
+    max|score| of the CPU's, on the same float32 inputs, and the order
+    equal wherever neighbouring scores are more than that apart."""
+    from dropclip_tpu_torch.grasp.grasps import rank_grasps_by_query
+
+    rng = np.random.default_rng(0)
+    n, g, c = 8000, 32, 768
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)
+    args = dict(
+        points=rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32),
+        point_feats=rng.standard_normal((n, c)).astype(np.float32),
+        point_mask=rng.random(n) > 0.05,
+        grasp_positions=rng.uniform(-0.3, 0.3, (g, 3)).astype(np.float32),
+        grasp_scores=rng.random(g).astype(np.float32),
+        pos_emb=unit(rng.standard_normal(c)).astype(np.float32),
+        neg_embs=unit(rng.standard_normal((4, c))).astype(np.float32))
+    ref_order, ref = rank_grasps_by_query(
+        **{k: torch.from_numpy(np.asarray(v)) for k, v in args.items()})
+    order, got = rank_grasps_by_query(
+        **{k: torch.from_numpy(np.asarray(v)).to(cuda)
+           for k, v in args.items()})
+    assert got.device.type == "cuda"
+    tol = 1e-5 * float(ref.abs().max())
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=tol)
+    ranked = ref[ref_order]
+    gaps = (ranked[1:] - ranked[:-1]) < -tol
+    clear = torch.ones(g, dtype=torch.bool)
+    clear[1:] &= gaps
+    clear[:-1] &= gaps
+    assert torch.equal(order.cpu()[clear], ref_order[clear])
+
+
+def test_nearest_neighbor_device_card_matches_cpu(cuda):
+    """1-NN indices on the card equal the CPU's (targets drawn away from
+    ties: each is a source point plus a small offset)."""
+    from dropclip_tpu_torch.geom.knn import nearest_neighbor_device
+
+    rng = np.random.default_rng(1)
+    src = rng.uniform(-1, 1, (20000, 3)).astype(np.float32)
+    pick = rng.integers(0, len(src), 5000)
+    tgt = src[pick] + rng.normal(0, 1e-4, (5000, 3)).astype(np.float32)
+    ref = nearest_neighbor_device(torch.from_numpy(src), tgt)
+    got = nearest_neighbor_device(torch.from_numpy(src).to(cuda), tgt)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(ref.long(), torch.from_numpy(pick))

@@ -1,7 +1,7 @@
 """Visualization exports: dropclip_tpu_torch.viz against dropclip_tpu.viz
 on the same numpy inputs (a seed): every .pcd export byte-equal, the PNG
-grids pixel-equal, the palette and PCA colours equal; the grasp export
-raises until the grasp modules are ported."""
+grids pixel-equal, the palette and PCA colours equal (the grasp-scene
+export is held in tests/test_torch_grasp.py)."""
 
 import os
 
@@ -68,8 +68,6 @@ def test_colours_and_round_trip(tmp_path):
     got_xyz, got_rgb = viz.load_pcd(path)
     np.testing.assert_array_equal(got_xyz, xyz)
     assert np.abs(got_rgb - rgb).max() <= 1 / 255 + 1e-7
-    with pytest.raises(NotImplementedError, match="ROADMAP.*7.4"):
-        viz.export_grasp_scene(str(tmp_path / "g"), xyz, rgb, None)
 
 
 def test_png_grids_equal(tmp_path):
