@@ -133,7 +133,31 @@
    ``make_visualizations`` with ``viz_query`` on its checkpoint (K1 16 per
    forward, K6 25 per text encode) and every grasp ranking card against
    CPU (planted fault: the radius compared unsquared);
-10. prints the ``kernels`` JSON line, the card line and, last,
+10. the gather engine (``sparse_backend gather``, after the serve
+   phase's card-vs-CPU check): ``GroundingPipeline(engine="gather")``
+   with the serve phase's seed-0 weights on its 8 tabletop scenes, each
+   scene's features in input order against the brick engine's (K1)
+   within 1e-4 of max|ref| (planted fault: every transposed conv's
+   octant mirrored), ``ground`` and ``ground_batch`` timed (K6 25 per
+   text encode), nothing dropped at any level; a batch-8 train step at
+   the train phase's recipe from the same weights, step 1's gradients
+   per tensor against the brick engine's K1 path in units of the train
+   phase's limit over the brick path's own floor (the scenes permuted),
+   the same planted fault, three timed steps and the peak memory;
+   ``train_distil`` and ``validate_blender`` in process with
+   ``sparse_backend gather`` on a fake 768-d dataset (the validation's
+   DistilLoss against the trainer's eval);
+11. multi-process training (after the eval path): ``tools/train_distil``
+   at global batch 8 on a fake 768-d .npz dataset, world size 1 over
+   NCCL (a group of one: every collective on the card) and world size 2
+   (two processes on the one card over gloo), joined by the
+   ``dist_coordinator`` keys: every rank's process group and its K1
+   launches (32 per step, 16 per val batch, counted in each process)
+   and its collectives on CUDA tensors, the two runs' step losses and,
+   after 3 steps, their parameters and BN statistics against two planted
+   faults (the gradients, the BN moments not summed over the ranks),
+   checkpoints from rank 0 only;
+12. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero. Without a CUDA card the
@@ -3795,6 +3819,448 @@ def raw_check_phase(state, report):
     return state["k1"] + k1_train + k1_viz, k6_train + k6_viz
 
 
+# ---- the gather engine and multi-process training: sparse_backend
+# gather served and trained at full width against the brick engine; the
+# trainer CLI at world size 1 (NCCL) and 2 (two ranks on the card, gloo)
+
+GATHER_FEAT_REL = 1e-4  # served features, of max|ref| per scene (card vs CPU)
+# queries the serve phase has not cached, so that every request encodes
+GATHER_QUERIES = [[f"the {c} cup", f"a {c} plate"] for c in (
+    "gray", "pink", "brown", "orange", "purple", "black", "yellow", "teal")]
+# step-1 gradients against the brick engine's, per tensor, in units of
+# the train phase's limit over the brick path's own floor (scenes
+# permuted): every sum of the step runs in another order, and the step's
+# batch-norm backward amplifies that (PERF.md, PR 8); the H100 read 4.38
+# (convtr4.kernel), the planted fault 630 (PERF.md, PR 13)
+GATHER_GRAD_FLOOR = 10.0
+DDP_DIR = os.path.join(ROOT, "build", "ddp")
+DDP_STEPS = 3
+# update gaps of the world-2 run against the world-1 run after DDP_STEPS
+# free-running steps (``update_gap``), set between the sound readings and
+# the planted faults' on the H100 (PERF.md, PR 13: parameters 0.118
+# against 1.03 with the gradients and 1.22 with the BN moments not
+# summed, BN statistics 0.0028 against 0.091 and 0.104): AMSGrad's first
+# updates are lr * g / |g|, so an element whose gradient lies within the
+# float32 noise of the summation order moves by up to 2 lr either way
+DDP_GAP = {"params": 0.3, "stats": 0.03}
+
+
+class mirrored_octants:
+    """The planted fault of the gather engine: every transposed conv's
+    child offset read as 7 - offset (the octant mirrored)."""
+
+    def __enter__(self):
+        from dropclip_tpu_torch.sparse import unet
+
+        self.unet, self.saved = unet, unet.sparse_conv_transpose
+        unet.sparse_conv_transpose = (
+            lambda x, p, o, w, m=None: self.saved(x, p, 7 - o, w, m))
+
+    def __exit__(self, *exc):
+        self.unet.sparse_conv_transpose = self.saved
+
+
+def gather_serve_phase(cfg, pipe, clouds, rgbs, report):
+    """GroundingPipeline(engine="gather") at the serve phase's width on
+    the 8 tabletop scenes with the same seed-0 weights: each scene's
+    features in input voxel order against the brick engine's (K1) within
+    GATHER_FEAT_REL of max|ref|, the planted fault (octants mirrored) far
+    outside it; nothing dropped at any level; one ``ground`` per scene
+    with queries of its own (K6 25 per text encode) and one
+    ``ground_batch``, timed. Returns the K6 launches."""
+    from dropclip_tpu_torch.ops.layernorm import layer_norm
+    from dropclip_tpu_torch.pipeline import GroundingPipeline
+
+    gpipe = GroundingPipeline(cfg, clip_sim=pipe.clip_sim, engine="gather",
+                              device="cuda", seed=SEED)
+    rels, dropped = [], []
+    for x, r in zip(clouds, rgbs):
+        got, vmask, _ = gpipe.featurize(x, r)
+        ref = pipe.featurize(x, r)[0]
+        dropped.append(gpipe.last_dropped)
+        rels.append(float((got - ref).abs().max() / ref.abs().max()))
+    with mirrored_octants():
+        bad = gpipe.featurize(clouds[-1], rgbs[-1])[0]
+    fault = float((bad - ref).abs().max() / ref.abs().max())
+    torch.cuda.reset_peak_memory_stats()
+    layer_norm.launches = 0
+    enc0, req_ms = pipe.clip_sim.encodes, []
+    for i, (x, r) in enumerate(zip(clouds, rgbs)):
+        torch.cuda.synchronize()
+        t = time.time()
+        masks, sims = gpipe.ground(x, r, GATHER_QUERIES[i])
+        req_ms.append((time.time() - t) * 1e3)
+        check(np.isfinite(sims).all() and 0 < masks.mean() < 1,
+              f"gather ground scene {i}: degenerate result")
+    torch.cuda.synchronize()
+    t = time.time()
+    gpipe.ground_batch(clouds, rgbs, BATCH_QUERIES)
+    batch_ms = (time.time() - t) * 1e3
+    k6_n, encs = layer_norm.launches, pipe.clip_sim.encodes - enc0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"gather serve: features vs the brick engine, max|d| / max|ref| "
+          f"per scene {rels} (limit {GATHER_FEAT_REL}; planted fault, "
+          f"octants mirrored: {fault}); dropped per scene {dropped}; ground "
+          f"{req_ms} ms; ground_batch of {len(clouds)} {batch_ms} ms; K6 "
+          f"{k6_n} over {encs} encodes; peak {peak / 2**30:.3f} GiB",
+          flush=True)
+    check(max(rels) <= GATHER_FEAT_REL,
+          f"gather features differ from the brick engine's: {max(rels)}")
+    check(fault > 10 * GATHER_FEAT_REL,
+          f"the planted gather fault reads only {fault}")
+    check(not any(dropped) and gpipe.last_dropped == 0,
+          f"the gather engine dropped voxels: {dropped}")
+    check(encs >= 1 and k6_n == 25 * encs,
+          f"K6 ran {k6_n} times over {encs} encodes (want 25 each)")
+    report["gather_serve"] = dict(
+        feat_rel=rels, limit=GATHER_FEAT_REL, planted_fault=fault,
+        dropped=dropped, request_ms=req_ms, batch_ms=batch_ms,
+        k6_launches=k6_n, encodes=encs, peak_bytes=peak)
+    return k6_n
+
+
+def gather_train_phase(report):
+    """A batch-8 step of ``sparse_backend gather`` at the train phase's
+    recipe and width from the same seed-0 weights (both engines register
+    the same modules in the same order: the state dicts are checked
+    equal): step 1's gradients against the brick engine's (K1 path) per
+    tensor in units of the train phase's limit (TRAIN_GRAD_RTOL * max|ref|
+    + 1e-7) over the brick path's own floor, the worst of the scenes in
+    PERMS' orders, each tensor's max(1, floor): held at GATHER_GRAD_FLOOR,
+    the planted fault (octants mirrored) far past it; the loss and the
+    grad norm within 1e-4; nothing dropped at any level; three timed
+    steps and the step's peak memory."""
+    import copy
+
+    from dropclip_tpu_torch.core.config import CfgNode
+    from dropclip_tpu_torch.distill.engine import (build_student_for,
+                                                   build_topology)
+
+    cfg, batch, host_model = train_setup()
+    gcfg = CfgNode(dict(cfg, sparse_backend="gather"))
+    ghost = build_student_for(gcfg,
+                              generator=torch.Generator().manual_seed(SEED))
+    gsd, bsd = ghost.state_dict(), host_model.state_dict()
+    check(set(gsd) == set(bsd) and all(torch.equal(v, bsd[k])
+                                        for k, v in gsd.items()),
+          "the gather and brick students differ at one seed")
+    topo = build_topology(gcfg, batch.coords, batch.mask)
+    dropped = topo.dropped.sum(0).tolist()
+    del topo
+    ref, n_ref, l_ref = step_grads(cfg, host_model, batch)
+    floor = {}
+    for perm in PERMS:
+        got, _, _ = step_grads(cfg, host_model, permuted(batch, perm))
+        for n, v in excess(got, ref).items():
+            floor[n] = max(floor.get(n, 0.0), v)
+        del got
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g, n_g, l_g = step_grads(gcfg, ghost, batch)
+    peak = torch.cuda.max_memory_allocated()
+    over = {n: v / max(1.0, floor[n]) for n, v in excess(g, ref).items()}
+    fro = rel_fro(g, ref)
+    missing = [n for n, t in g.items() if t is None
+               or not torch.isfinite(t).all() or float(t.abs().max()) == 0]
+    del g
+    with mirrored_octants():
+        bad, _, _ = step_grads(gcfg, ghost, batch)
+    fault = worst({n: v / max(1.0, floor[n])
+                   for n, v in excess(bad, ref).items()})
+    del bad
+    torch.cuda.empty_cache()
+    losses, step_dropped, ms, _ = timed_steps(gcfg, copy.deepcopy(
+        ghost).cuda(), batch, 3)
+    torch.cuda.empty_cache()
+    print(f"gather train step 1: loss {l_g} (bricks {l_ref}), grad_norm "
+          f"{n_g} (bricks {n_ref}); per tensor over the brick path's "
+          f"floor {worst(over)}, Frobenius {worst(fro)}, brick floor "
+          f"{worst(floor)}; planted fault (octants mirrored) {fault}; "
+          f"dropped per level {dropped}; peak {peak / 2**30:.3f} GiB; 3 "
+          f"steps {ms} ms, losses {losses}, dropped {step_dropped}",
+          flush=True)
+    check(not missing, f"gather path: no (finite, nonzero) gradient for "
+          f"{missing[:5]}")
+    check(worst(over)[0] <= GATHER_GRAD_FLOOR,
+          f"gather gradients differ from the brick engine's: {worst(over)}")
+    check(abs(l_g - l_ref) <= 1e-4 * abs(l_ref)
+          and abs(n_g - n_ref) <= 1e-4 * n_ref,
+          f"gather loss or grad norm differ: {l_g} {l_ref} {n_g} {n_ref}")
+    check(fault[0] > 10 * GATHER_GRAD_FLOOR,
+          f"the planted gather fault reads only {fault}")
+    check(not any(dropped) and not any(step_dropped),
+          f"the gather engine dropped voxels: {dropped}, {step_dropped}")
+    report["gather_train"] = dict(
+        loss=l_g, loss_bricks=l_ref, grad_norm=n_g, grad_norm_bricks=n_ref,
+        over_floor=list(worst(over)), limit=GATHER_GRAD_FLOOR,
+        fro=list(worst(fro)),
+        brick_floor=list(worst(floor)), planted_fault=list(fault),
+        dropped=dropped, peak_bytes=peak, step_ms=ms, losses=losses)
+
+
+def gather_cli_phase(report):
+    """``sparse_backend gather`` through the CLIs' entry points in
+    process: ``train_distil.main`` for one epoch of one batch-8 step on
+    a fake 768-d .npz dataset (8 train and 8 test scenes) with its
+    validation, then ``validate_blender.main`` on that checkpoint with the
+    ViT-L text tower drawn from a seed (``clip_checkpoint random``): the
+    trainer logs nothing dropped, validation refuses dropped voxels
+    itself, and its DistilLoss equals the trainer's eval of the same
+    weights (1e-4: the trainer's log keeps four decimals). Files under
+    build/gather_cli/, deleted after. Returns K6's launches."""
+    from dropclip_tpu_torch.data.synthetic import write_fake_processed_dataset
+    from dropclip_tpu_torch.ops.layernorm import layer_norm
+    from dropclip_tpu_torch.tools import train_distil, validate_blender
+
+    work = os.path.join(ROOT, "build", "gather_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "data")
+    write_fake_processed_dataset(data, n_scenes=8, n_objects=3,
+                                 feat_dim=768, fmt="npz")
+    opts = ["root_dir", data, "batch_size_val", "8", "workers_val", "1",
+            "sparse_backend", "gather"]
+    yaml = os.path.join(ROOT, "configs", "DistilBlender.yaml")
+    try:
+        t = time.time()
+        ckpt = train_distil.main(["--config", yaml, "--opts", *opts,
+                                  "batch_size", "8", "workers", "2",
+                                  "epochs", "1", "save_path", work])
+        train_s = time.time() - t
+        with open(os.path.join(ckpt, "train.log")) as f:
+            log = f.read()
+        layer_norm.launches = 0
+        t = time.time()
+        res = validate_blender.main(["--config", yaml, "--opts", *opts,
+                                     "resume", ckpt, "clip_checkpoint",
+                                     "random"])
+        val_s = time.time() - t
+        k6_n = layer_norm.launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    val = float(re.findall(r"Eval: Epoch=\[0/1\] DistilLoss=([0-9.]+)",
+                           log)[0])
+    print(f"gather CLIs: train_distil one step + eval {train_s:.1f} s, "
+          f"validate_blender {val_s:.1f} s: {res}; the trainer's eval "
+          f"DistilLoss {val}; K6 {k6_n}", flush=True)
+    check("dropped" not in log, "the gather trainer dropped voxels")
+    check(abs(res["DistilLoss"] - val) <= 1e-4
+          and all(np.isfinite(v) for k, v in res.items() if k != "eval_cfg"),
+          f"gather validation {res} against the trainer's {val}")
+    check(k6_n > 0 and k6_n % 25 == 0, f"validation K6 launches {k6_n}")
+    report["gather_cli"] = dict(train_s=train_s, validate_s=val_s,
+                                result=res, trainer_val=val, k6=k6_n)
+    return k6_n
+
+
+def gather_phase(cfg, pipe, clouds, rgbs, report):
+    """The gather engine at configs/DistilBlender.yaml's width: serving
+    against the brick engine, a train step, the CLIs. Returns K6's
+    launches."""
+    t = time.time()
+    k6_n = gather_serve_phase(cfg, pipe, clouds, rgbs, report)
+    gather_train_phase(report)
+    k6_n += gather_cli_phase(report)
+    report["gather_seconds"] = time.time() - t
+    print(f"gather phase: {report['gather_seconds']:.1f} s", flush=True)
+    return k6_n
+
+
+_COUNTED_CLI = (
+    "import runpy, sys\n"
+    "import torch.distributed as dist\n"
+    "from dropclip_tpu_torch.kernels.brick_conv3 import counter\n"
+    "on_card = {'all_reduce': 0, 'broadcast': 0}\n"
+    "def count(name, fn):\n"
+    "    def call(t, *a, **k):\n"
+    "        on_card[name] += t.is_cuda\n"
+    "        return fn(t, *a, **k)\n"
+    "    return call\n"
+    "for name in on_card:\n"
+    "    setattr(dist, name, count(name, getattr(dist, name)))\n"
+    "if sys.argv[1] == 'unsummed':\n"
+    "    from dropclip_tpu_torch.distill import engine\n"
+    "    engine.all_reduce_gradients = lambda params: None\n"
+    "if sys.argv[1] == 'unsynced':\n"
+    "    from dropclip_tpu_torch.sparse import unet\n"
+    "    unet.all_reduce_sum_diff = lambda t: t\n"
+    "counter.launches = 0\n"
+    "sys.argv = ['train_distil'] + sys.argv[2:]\n"
+    "runpy.run_module('dropclip_tpu_torch.tools.train_distil', "
+    "run_name='__main__')\n"
+    "print('K1 launches', counter.launches, flush=True)\n"
+    "print('collectives on the card', on_card, flush=True)\n")
+
+
+def ddp_start(tag, data, world, backend, fault="none"):
+    """Start ``tools/train_distil`` in ``world`` processes on the card,
+    joined by the JAX package's keys (``dist_coordinator``,
+    ``num_processes``, ``process_id``) over ``backend``: MinkUNet14D on
+    the fake 768-d .npz dataset, global batch 8, one epoch of DDP_STEPS
+    steps and its validation. Each rank counts its K1 launches (set to 0
+    before the run, printed after it) and its all_reduce and broadcast
+    calls on CUDA tensors. ``fault`` plants a fault: "unsummed" steps
+    each rank on its own gradients (the sum over the ranks taken out),
+    "unsynced" takes each rank's BN moments from its own rows (SyncBN's
+    sums taken out). Returns (tag, the processes) for ``ddp_finish``."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    save = os.path.join(DDP_DIR, tag)
+    procs = []
+    for r in range(world):
+        cmd = [sys.executable, "-c", _COUNTED_CLI, fault, "--config",
+               os.path.join(ROOT, "configs", "DistilBlender.yaml"), "--opts",
+               "root_dir", data, "batch_size", "8", "batch_size_val", "8",
+               "workers", "2", "workers_val", "1", "epochs", "1",
+               "print_freq", "1", "save_path", save, "dist_coordinator",
+               f"127.0.0.1:{port}", "num_processes", str(world),
+               "process_id", str(r), "dist_backend", backend]
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE))
+    return tag, procs
+
+
+def ddp_finish(started):
+    """Wait for a ``ddp_start`` run. Returns (checkpoint dir, the ranks'
+    logs, the ranks' K1 launches, the ranks' collectives on the card)."""
+    tag, procs = started
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    logs = os.path.join(ROOT, "chiprun_out", "ddp")
+    os.makedirs(logs, exist_ok=True)
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        with open(os.path.join(logs, f"{tag}.rank-{r}.log"), "w") as f:
+            f.write(so + se)
+        check(p.returncode == 0, f"DDP run {tag} rank {r} failed: "
+              f"{se[-2000:]}")
+    err0 = outs[0][1]
+    ckpt = err0.split("checkpoints in ")[-1].strip()
+    rank_logs = [err0]
+    for r in range(1, len(procs)):
+        with open(os.path.join(ckpt, f"train.rank-{r}.log")) as f:
+            rank_logs.append(f.read())
+    k1 = [int(re.findall(r"K1 launches (\d+)", so)[-1]) for so, _ in outs]
+    calls = [tuple(int(n) for n in re.findall(
+        r"collectives on the card \{'all_reduce': (\d+), 'broadcast': "
+        r"(\d+)\}", so)[-1]) for so, _ in outs]
+    return ckpt, rank_logs, k1, calls
+
+
+def update_gap(got, ref, init, names):
+    """||got - ref|| / ||ref - init|| over the tensors ``names`` taken
+    together (Frobenius): how far two runs' updates from ``init`` lie
+    apart, relative to the update itself."""
+    d = sum(float(((got[n] - ref[n]).double() ** 2).sum()) for n in names)
+    u = sum(float(((ref[n] - init[n]).double() ** 2).sum()) for n in names)
+    return (d / max(u, 1e-300)) ** 0.5
+
+
+def ddp_phase(report):
+    """The trainer CLI at global batch 8 on a fake 768-d .npz dataset (24
+    train and 24 test scenes, one epoch of DDP_STEPS steps and its
+    validation): world size 1 over NCCL (a group of one, so that every
+    collective of the step runs on the card, as the identity), then world
+    size 2, two processes on the one card over gloo (NCCL refuses two
+    ranks on one card; gloo takes the card's tensors), then two planted
+    faults at world size 2, side by side: the gradient sum over the ranks
+    taken out, and SyncBN's moment sums taken out. Checks: every rank's
+    process group formed on its backend, launched K1 (32 per step and 16
+    per val batch) and called all_reduce and broadcast on CUDA tensors;
+    the step losses within TRAIN_LOSS_RTOL; after the steps the
+    parameters' and the BN statistics' update gaps (``update_gap``
+    against the world-1 run, from the seed's initial state) within
+    DDP_GAP, each planted fault's past at least one of them (the
+    unsummed gradients past both); only rank 0 wrote checkpoints.
+    Returns every rank's K1 launches (the faults' runs not counted)."""
+    from dropclip_tpu_torch.core.checkpoint import restore_checkpoint
+    from dropclip_tpu_torch.core.config import load_cfg
+    from dropclip_tpu_torch.data.synthetic import write_fake_processed_dataset
+    from dropclip_tpu_torch.distill.engine import build_student_for
+
+    t = time.time()
+    data = os.path.join(DDP_DIR, "data")
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    write_fake_processed_dataset(data, n_scenes=8 * DDP_STEPS, n_objects=3,
+                                 feat_dim=768, fmt="npz")
+    faults = ("unsummed", "unsynced")
+    try:
+        runs = {tag: ddp_finish(ddp_start(tag, data, world, backend))
+                for tag, world, backend in (("nccl1", 1, "nccl"),
+                                            ("gloo2", 2, "gloo"))}
+        started = [ddp_start(f, data, 2, "gloo", f) for f in faults]
+        runs.update({s[0]: ddp_finish(s) for s in started})
+        cks = {tag: restore_checkpoint(run[0], map_location="cpu")
+               for tag, run in runs.items()}
+        files = {tag: sorted(os.listdir(run[0])) for tag, run in runs.items()}
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    for tag, world, backend in (("nccl1", 1, "nccl"), ("gloo2", 2, "gloo")):
+        for r, log in enumerate(runs[tag][1]):
+            check(f"rank {r} of {world}, backend {backend}" in log,
+                  f"{tag} rank {r}: no {backend} process group in its log")
+    losses = {tag: [float(v) for v in re.findall(
+        r"Epoch \[0\] \[\d+/\d+\].*?DistilLoss ([0-9.]+) ", run[1][0])]
+        for tag, run in runs.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["gloo2"],
+                                               losses["nccl1"])]
+    cfg = load_cfg(os.path.join(ROOT, "configs", "DistilBlender.yaml"))
+    init = build_student_for(cfg, generator=torch.Generator().manual_seed(
+        int(cfg.manual_seed))).state_dict()
+    one = cks["nccl1"]["model"]
+    stats = [k for k in one if k.endswith((".mean", ".var"))]
+    params = [k for k in one if k not in stats]
+    gaps = {tag: dict(params=update_gap(cks[tag]["model"], one, init, params),
+                      stats=update_gap(cks[tag]["model"], one, init, stats),
+                      worst_tensor=worst({k: update_gap(
+                          cks[tag]["model"], one, init, [k]) for k in params}))
+            for tag in ("gloo2",) + faults}
+    k1 = {tag: runs[tag][2] for tag in ("nccl1", "gloo2")}
+    calls = {tag: runs[tag][3] for tag in ("nccl1", "gloo2")}
+    secs = time.time() - t
+    print(f"DDP: losses world 1 (NCCL) {losses['nccl1']}, world 2 (gloo on "
+          f"the card's tensors) {losses['gloo2']}, max rel {max(rel)}; "
+          f"planted faults: gradients not summed {losses['unsummed']}, BN "
+          f"moments not summed {losses['unsynced']}; after {DDP_STEPS} "
+          f"steps, update gaps against world 1 (limit {DDP_GAP}): world 2 "
+          f"{gaps['gloo2']}, gradients not summed {gaps['unsummed']}, BN "
+          f"moments not summed {gaps['unsynced']}; K1 launches per rank "
+          f"{k1}; (all_reduce, broadcast) calls on CUDA tensors per rank "
+          f"{calls}; files {files}; {secs:.1f} s", flush=True)
+    check(len(losses["nccl1"]) == len(losses["gloo2"]) == DDP_STEPS,
+          f"DDP step losses {losses}")
+    check(max(rel) <= TRAIN_LOSS_RTOL, f"DDP losses differ by {max(rel)}")
+    want = 32 * DDP_STEPS + 16 * 3
+    check(all(n == want for ns in k1.values() for n in ns),
+          f"K1 launches per rank {k1} (want {want} each)")
+    check(all(a > 0 and b > 0 for cs in calls.values() for a, b in cs),
+          f"collectives on the card per rank {calls}")
+    check(cks["nccl1"]["step"] == cks["gloo2"]["step"] == DDP_STEPS,
+          "DDP checkpoint steps")
+    check(files["gloo2"] == ["best_sim_loss_model.pt", "last_model.pt",
+                             "train.log", "train.rank-1.log"],
+          f"world 2 wrote {files['gloo2']}")
+    check(all(gaps["gloo2"][k] <= v for k, v in DDP_GAP.items()),
+          f"world 2's parameters or BN statistics stray: {gaps['gloo2']}")
+    check(all(gaps["unsummed"][k] > v for k, v in DDP_GAP.items()),
+          f"the unsummed gradients read only {gaps['unsummed']}")
+    check(any(gaps["unsynced"][k] > v for k, v in DDP_GAP.items()),
+          f"the unsummed BN moments read only {gaps['unsynced']}")
+    report["ddp"] = dict(losses=losses, loss_rel=rel, k1_launches=k1,
+                         collectives_on_card=calls, gaps=gaps, limit=DDP_GAP,
+                         files=files, seconds=secs)
+    return sum(n for ns in k1.values() for n in ns)
+
+
 # the teachers: DINOv2, DINO v1, the RN towers and the extraction CLIs
 TEACHER_DIR = os.path.join(ROOT, "build", "teachers")
 DINOV2_SIZES = ((336, 448), (518, 518), (672, 896))
@@ -4536,6 +5002,7 @@ def main():
     k6 = k6_phase(report)
     k1_n, k6_n = serve_phase(pipe, clouds, rgbs, report)
     cpu_phase(cfg, pipe, clouds, rgbs, report)
+    k6_gather = gather_phase(cfg, pipe, clouds, rgbs, report)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     queries = ["a red box", "the cup"]
     profile_phase(
@@ -4581,6 +5048,7 @@ def main():
     run_eval_cpu_phase(report)
     k1_train_n, k1_train, cli = train_phase(report)
     k1_eval_n, k6_eval_n = eval_phase(cfg, cli, report)
+    k1_ddp = ddp_phase(report)
     k1_raw, k6_raw = raw_check_phase(raw, report)
     tn, trows = teachers_phase(report)
 
@@ -4588,9 +5056,10 @@ def main():
         dict(name="K1 brick_conv3", route="cuda",
              source="dropclip_tpu_torch/csrc/brick_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_conv.py:125",
-             launches=k1_n + k1_train_n + k1_eval_n + k1_raw,
+             launches=k1_n + k1_train_n + k1_eval_n + k1_raw + k1_ddp,
              serve_launches=k1_n, train_launches=k1_train_n,
-             eval_launches=k1_eval_n, raw_launches=k1_raw, **k1,
+             eval_launches=k1_eval_n, raw_launches=k1_raw,
+             ddp_launches=k1_ddp, **k1,
              **k1_train, regrad_layout={
                  k: v for k, v in report["regrad_k1"].items()
                  if k != "rows"}),
@@ -4623,8 +5092,9 @@ def main():
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:153",
              launches=(k6_n + k6_np + n_ing["K6"] + n_re["K6"] + k6_eval_n
-                       + raw["n"]["K6"] + k6_raw + tn["K6"]),
+                       + raw["n"]["K6"] + k6_raw + tn["K6"] + k6_gather),
              run_eval_launches=n_re["K6"], eval_launches=k6_eval_n,
+             gather_launches=k6_gather,
              raw_launches=raw["n"]["K6"] + k6_raw,
              teacher_launches=tn["K6"], **k6, teacher_rows={
                  tag: row for tag, row in trows.items()

@@ -11,7 +11,10 @@ query in a Python loop.
 
 Every scene of a batch is scored; ``compat_last_scene_only=True``
 reproduces the reference, which scores only the last scene of each batch
-(engine/distil.py:436-460, validate_blender.py:150-189).
+(engine/distil.py:436-460, validate_blender.py:150-189). Under a process
+group each rank scores its own val shard and ``mean_over_ranks`` averages
+the scalar metrics (the JAX trainer's mean of per-rank means,
+``all_reduce_mean_host``).
 """
 
 from __future__ import annotations
@@ -21,10 +24,19 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.mesh import all_reduce_mean_host
 from ..core.metrics import grounding_metrics, intersection_and_union
 from ..similarity import NEGATIVE_PROMPT_GENERIC, predict_queries
 
 PR_IOUS = (0.25, 0.5, 0.75)
+
+
+def mean_over_ranks(res: Dict[str, float]) -> Dict[str, float]:
+    """Each scalar metric averaged over the ranks (in sorted key order, the
+    same on every rank); ``res``'s values without a process group."""
+    keys = sorted(res)
+    vals = all_reduce_mean_host([float(res[k]) for k in keys])
+    return {k: float(v) for k, v in zip(keys, vals)}
 
 
 def scene_query_plan(obj_queries: Dict, sim_negatives: str = "generic",

@@ -38,23 +38,30 @@ def _cosine_similarity(a: torch.Tensor, b: torch.Tensor,
 
 
 def cosine_distil_loss(out: torch.Tensor, targets: torch.Tensor,
-                       mask: torch.Tensor) -> torch.Tensor:
-    """(1 - cos(out, target)) averaged over valid voxels. Padded rows are
+                       mask: torch.Tensor,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(1 - cos(out, target)) summed over valid voxels, over ``count`` of
+    them (this batch's by default; the global batch's under a process
+    group, so the ranks' losses sum to the global mean). Padded rows are
     replaced with ones before the norm, so no NaN gradient reaches them."""
     m = mask[..., None]
     safe_out = torch.where(m, out.float(), 1.0)
     safe_tgt = torch.where(m, targets.float(), 1.0)
     cos = _cosine_similarity(safe_out, safe_tgt)
     w = mask.float()
-    return ((1.0 - cos) * w).sum() / w.sum().clamp(min=1.0)
+    n = w.sum() if count is None else count
+    return ((1.0 - cos) * w).sum() / n.clamp(min=1.0)
 
 
 def l1_distil_loss(out: torch.Tensor, targets: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
-    """Mean absolute error over valid voxel-feature entries."""
+                   mask: torch.Tensor,
+                   count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Absolute error summed over valid voxel-feature entries, over
+    ``count`` valid voxels (default this batch's) times the width."""
     w = mask.float()[..., None]
     err = (out.float() - targets.float()).abs() * w
-    return err.sum() / (w.sum() * out.shape[-1]).clamp(min=1.0)
+    n = w.sum() if count is None else count
+    return err.sum() / (n * out.shape[-1]).clamp(min=1.0)
 
 
 def _hinge_single(features: torch.Tensor, labels: torch.Tensor,
@@ -99,26 +106,32 @@ def _hinge_single(features: torch.Tensor, labels: torch.Tensor,
 
 def aux_hinge_loss(features: torch.Tensor, labels: torch.Tensor,
                    mask: torch.Tensor, max_labels: int,
-                   margin: float = 0.05) -> Tuple[torch.Tensor, torch.Tensor]:
+                   margin: float = 0.05, n_scenes: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched per-object hinge auxiliary loss. features (B, M, C); labels
     (B, M) int in [0, max_labels); mask (B, M). Returns (pos_loss,
-    margin_loss) scalars averaged over the batch (reference
+    margin_loss) scalars, each summed over the scenes and divided by
+    ``n_scenes`` (default B: the batch mean, reference
     ``batch_aux_hinge_loss``)."""
     pos, mar = _hinge_single(features, labels, mask, max_labels, margin)
-    return pos.mean(), mar.mean()
+    n = pos.shape[0] if n_scenes is None else n_scenes
+    return pos.sum() / n, mar.sum() / n
 
 
 def cross_entropy_cls_loss(logits: torch.Tensor, labels: torch.Tensor,
-                           mask: torch.Tensor,
-                           ignore_label: int = 255) -> torch.Tensor:
+                           mask: torch.Tensor, ignore_label: int = 255,
+                           count: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Per-voxel CE with an ignore index (reference
-    engine/distil.py:116,187-192)."""
+    engine/distil.py:116,187-192), summed and divided by ``count``
+    labelled voxels (default this batch's)."""
     valid = mask & (labels != ignore_label)
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     w = valid.float()
-    return (nll * w).sum() / w.sum().clamp(min=1.0)
+    n = w.sum() if count is None else count
+    return (nll * w).sum() / n.clamp(min=1.0)
 
 
 def average_cosine_distance(out: torch.Tensor, targets: torch.Tensor,

@@ -6,11 +6,14 @@ Port of ``dropclip_tpu/pipeline.py`` (single device):
     masks, sims = pipe.ground(xyz, rgb, ["the red mug"])
 
 voxelize (host, numpy) -> student -> paired-softmax grounding against
-cached text embeddings (CLIP text tower, LayerNorms through K6). Two
+cached text embeddings (CLIP text tower, LayerNorms through K6). Three
 engines run the student: "bricks" (the default; brick topology built by
-torch ops on the card, every k3 conv through K1) and "pillars" (the
-volumetric engine for bin and shelf scenes; host-built pillar topology at
-frozen static shapes, every k3 conv through K2, one scene per call).
+torch ops on the card, every k3 conv through K1), "gather" (per-voxel
+kernel maps built on the card by ``sparse.topology``, every conv a row
+gather and a matmul: the reference-parity baseline, whose output the
+student returns in input voxel order) and "pillars" (the volumetric
+engine for bin and shelf scenes; host-built pillar topology at frozen
+static shapes, every k3 conv through K2, one scene per call).
 ``GroundingPipeline.from_checkpoint`` loads the port trainer's checkpoint.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 which runs the plain versions of the kernels; without a card and without
@@ -76,7 +79,8 @@ class GroundingPipeline:
     None draws a seeded student. ``forwards`` counts student forwards
     (each runs 16 k3 convs on MinkUNet14D).
 
-    ``engine``: "bricks" (``cfg.sparse_backend``'s default) or "pillars".
+    ``engine``: "bricks" (``cfg.sparse_backend``'s default), "gather" or
+    "pillars".
     The pillar engine's static shapes (``pillar_site_capacities`` per level
     and ``pillar_z0``) default to a slack-padded fit of the FIRST scene
     (``fit_pillar_shapes``), so later scenes reuse them; pass them when
@@ -90,10 +94,12 @@ class GroundingPipeline:
                  pillar_site_capacities: Optional[Sequence[int]] = None,
                  pillar_z0: Optional[int] = None):
         self.engine = engine or cfg.sparse_backend or "bricks"
-        if self.engine not in ("bricks", "pillars"):
-            raise NotImplementedError(
-                f"engine {self.engine!r} is not ported yet: the gather "
-                "engine comes with slice 3 (ROADMAP queue 1 item 7.2)")
+        if self.engine not in ("bricks", "gather", "pillars"):
+            raise ValueError(f"engine {self.engine!r}: want bricks, gather "
+                             "or pillars")
+        if self.engine != "pillars" and \
+                (cfg.sparse_backend or "bricks") != self.engine:
+            cfg = type(cfg)(dict(cfg, sparse_backend=self.engine))
         self.cfg = cfg
         self.device = resolve_device(device)
         self.capacity = int(cfg.voxel_capacity or 8192)
@@ -158,9 +164,10 @@ class GroundingPipeline:
         self.last_dropped = int(topology_dropped(topo))
         if self.last_dropped:
             logging.getLogger("dropclip").warning(
-                "GroundingPipeline: %d voxels dropped (brick capacity / "
-                "grid extent overflow) — grounding masks will miss that "
-                "geometry; raise brick_capacities", self.last_dropped)
+                "GroundingPipeline[%s]: %d voxels dropped (capacity or grid "
+                "extent overflow) — grounding masks will miss that "
+                "geometry; raise the engine's capacities", self.engine,
+                self.last_dropped)
         return out
 
     @torch.no_grad()
@@ -240,11 +247,11 @@ class GroundingPipeline:
                      negatives: Optional[List[str]] = None,
                      threshold: Optional[float] = None,
                      per_point: bool = True):
-        """Throughput serving: B scenes x shared queries, one folded
+        """Throughput serving: B scenes x shared queries, one batched
         student forward. Returns (masks, sims): lists of per-scene (Q, N_i)
         masks and (B, Q, cap) sims when ``per_point``, else (B, Q, cap)
-        arrays for both. The brick engine only: the pillar engine serves
-        one scene per ``ground`` call."""
+        arrays for both. The brick and gather engines: the pillar engine
+        serves one scene per ``ground`` call."""
         if self.engine == "pillars":
             raise ValueError(
                 "ground_batch runs the batched brick program; the pillar "

@@ -6,8 +6,11 @@ names follow the flax tree (``block1_0.conv1.kernel``,
 JAX checkpoint onto ``load_state_dict`` one to one; sparse kernels stay
 (K, Cin, Cout) in lexicographic offset order.
 
-The port runs one process on one device, so the forward always folds the
-scene batch into one brick axis (``bricks.fold_topology``). Every k3 conv
+Each process owns its local batch on one device, so the forward always
+folds its scenes into one brick axis (``bricks.fold_topology``); under a
+process group of several ranks this stays right, as the batch norms sum
+their moments over the ranks (the JAX ``_auto_fold`` fault, folding a
+batch sharded across devices, has no counterpart here). Every k3 conv
 goes through ``kernels.brick_conv3.BrickConv3Fn`` (K1 on CUDA tensors for
 the forward and the input gradient, the plain version on CPU); the k5
 stem and the k2s2 down/up convs are plain torch ops under native
@@ -34,8 +37,8 @@ from ..kernels.brick_conv3 import BrickConv3Fn, row_order
 from .bricks import (BrickLevel, BrickTopology, brick_conv, brick_down_conv,
                      brick_up_conv, fold_topology, gather_points,
                      scatter_points)
-from .unet import (UNET_ARCHS, ConvKernel, MaskedBatchNorm,
-                   reset_student_parameters)
+from .unet import (ConvKernel, MaskedBatchNorm, arch_of,
+                   reset_student_parameters, stage_dropout)
 
 Schedule = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -226,17 +229,7 @@ class MinkUNetBricks(nn.Module):
 
     def _dropout(self, x: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
-        """Dropout after a stage in training (JAX ``_dropout``, flax
-        ``nn.Dropout``: keep with probability 1 - rate, scaled by
-        1 / (1 - rate)), the mask drawn from ``generator``."""
-        rate = self.dropout_rate
-        if rate <= 0 or not self.training:
-            return x
-        if rate >= 1:
-            return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) >= rate
-        return torch.where(keep, x / (1.0 - rate), 0.0)
+        return stage_dropout(x, self.dropout_rate, self.training, generator)
 
     def forward(self, topo: BrickTopology, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
@@ -290,14 +283,7 @@ def build_student_bricks(cfg: Any, in_channels: Optional[int] = None,
     mode (a trainer calls ``.train()``), weights drawn from ``generator``.
     ``in_channels`` defaults to xyz (+rgb when ``cfg.use_color``);
     ``remat`` defaults to True when ``cfg.remat`` is unset, as in JAX."""
-    arch = cfg.arch_3d or "MinkUNet14D"
-    if arch not in UNET_ARCHS:
-        raise ValueError(f"architecture {arch} not supported")
-    block, layers, planes = UNET_ARCHS[arch]
-    if cfg.planes is not None:
-        planes = tuple(int(p) for p in cfg.planes)
-    if cfg.layers is not None:
-        layers = tuple(int(l) for l in cfg.layers)
+    block, layers, planes = arch_of(cfg)
     if in_channels is None:
         in_channels = 6 if cfg.use_color else 3
     model = MinkUNetBricks(

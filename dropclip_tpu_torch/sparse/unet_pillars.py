@@ -31,7 +31,7 @@ from ..kernels.pillar_conv3 import Schedule, pillar_conv3, row_order
 from .pillar_ops import pillar_conv_xla, pillar_down_conv, pillar_up_conv
 from .pillar_topology import (PillarLevel, PillarTopology,
                               gather_points_pillar, scatter_points_pillar)
-from .unet import (UNET_ARCHS, ConvKernel, MaskedBatchNorm,
+from .unet import (ConvKernel, MaskedBatchNorm, arch_of,
                    reset_student_parameters)
 
 
@@ -223,17 +223,10 @@ def build_student_pillars(cfg: Any, in_channels: Optional[int] = None,
     """Pillar-backend student (same archs as the brick factory), in eval
     mode, weights drawn from ``generator``. An inference engine: no
     dropout and no classification head."""
-    arch = cfg.arch_3d or "MinkUNet14D"
-    if arch not in UNET_ARCHS:
-        raise ValueError(f"architecture {arch} not supported")
+    block, layers, planes = arch_of(cfg)
     if cfg.use_cls_head:
         raise ValueError("the pillar engine serves features only: "
                          "use_cls_head is not supported")
-    block, layers, planes = UNET_ARCHS[arch]
-    if cfg.planes is not None:
-        planes = tuple(int(p) for p in cfg.planes)
-    if cfg.layers is not None:
-        layers = tuple(int(l) for l in cfg.layers)
     if in_channels is None:
         in_channels = 6 if cfg.use_color else 3
     model = MinkUNetPillars(

@@ -4,13 +4,27 @@ Port of ``dropclip_tpu/tools/train_distil.py``'s per-step loop (reference
 tools/train_distil.py:39-283): the same config semantics and recipe
 (AMSGrad with decoupled weight decay and per-iteration SGDR cosine LR,
 grad clip, cosine distil loss, k random views per sample, checkpoints of
-the last epoch and of the best validation similarity loss), in one
-process on one device: the card unless ``--device`` says otherwise. On
-the card every k3 conv of the student runs K1 forward and backward.
+the last epoch and of the best validation similarity loss), one device a
+process: the card unless ``--device`` says otherwise. On the card every
+k3 conv of the brick student runs K1 forward and backward;
+``sparse_backend gather`` trains the gather engine.
 
 Usage:
   python -m dropclip_tpu_torch.tools.train_distil \\
       --config configs/DistilBlender.yaml [--device cpu] [--opts key value ...]
+  torchrun --nproc_per_node 2 -m dropclip_tpu_torch.tools.train_distil \\
+      --config configs/DistilBlender.yaml [--device cpu] [--opts ...]
+
+Several processes (torchrun's environment, or the JAX package's keys
+``dist_coordinator host:port``, ``num_processes`` and ``process_id``;
+``dist_backend`` overrides NCCL on the card and gloo on the CPU) train
+data-parallel as the JAX trainer's process mesh does: each rank loads its
+``shard_index`` of every epoch at ``batch_size // world`` rows, the step
+is the global batch's (``distill.engine``), brick capacities are tuned on
+rank 0 and broadcast, validation runs each rank's val shard and averages
+the scalar metrics over the ranks, and rank 0 alone writes checkpoints
+and wandb; rank i > 0 logs to ``train.rank-<i>.log`` and dumps its
+visualization under ``rank-<i>``.
 
 Validation each ``eval_freq`` epochs: with a ``clip_checkpoint`` (a CLIP
 checkpoint file, or "random"), segmentation eval (``eval_task`` all or
@@ -18,8 +32,8 @@ segmentation, with ``cls_list_path``) and grounding eval (``eval_task``
 all or grounding, whose DistilLoss picks the best checkpoint); otherwise
 the distil loss alone. ``visualize`` dumps one val scene per eval epoch.
 
-Not ported yet, each raising with its ROADMAP item: ``scan_epochs > 0``,
-``profile_dir`` and several processes.
+Not ported yet, each raising with its ROADMAP item: ``scan_epochs > 0``
+and ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -36,12 +50,17 @@ import torch
 from ..core.checkpoint import restore_checkpoint, save_checkpoint
 from ..core.config import load_cfg, merge_cfg_from_list
 from ..core.device import resolve_device
+from ..core.distributed import (broadcast_module, local_device,
+                                maybe_initialize_distributed)
 from ..core.logging import setup_logger
+from ..core.mesh import (all_reduce_mean_host, broadcast_host, distributed,
+                         process_count, process_index)
 from ..core.meters import AverageMeter, ProgressMeter
 from ..data import build_dataset_for
 from ..data.loader import DataLoader
 from ..distill.engine import (DistilBatch, brick_shape_of, build_student_for,
                               make_eval_step, make_train_step)
+from ..distill.evaluate import mean_over_ranks
 from ..distill.train_state import create_train_state, make_optimizer
 from ..pipeline import make_clip_sim
 from ..sparse.bricks import autotune_brick_capacities
@@ -67,9 +86,6 @@ def _refuse_unported(cfg) -> None:
          "make_scanned_train as a CUDA graph"),
         (bool(cfg.profile_dir), "profile_dir", "profile_dir on "
          "torch.profiler"),
-        (int(os.environ.get("WORLD_SIZE", "1")) > 1 or bool(
-            cfg.dist_coordinator), "several processes (training and "
-         "eval)", "DDP with all-reduced BN stats"),
     ]
     for on, what, item in todo:
         if on:
@@ -92,20 +108,26 @@ def to_batch(b: Dict, device: torch.device) -> DistilBatch:
 
 
 def autotune_capacities(cfg, ds, collate, logger) -> None:
-    """Static brick capacities from 16 samples of ``ds`` unless set or
-    ``autotune_capacities`` is False: every brick conv scales with
-    capacity and the M//8 rule over-allocates; slack 1.5 absorbs
-    augmentation variance, and a scene past capacity only drops its
-    overflow bricks (counted by the steps)."""
+    """Static brick capacities from 16 samples of ``ds`` unless set,
+    ``autotune_capacities`` is False or the engine is not bricks: every
+    brick conv scales with capacity and the M//8 rule over-allocates;
+    slack 1.5 absorbs augmentation variance, and a scene past capacity
+    only drops its overflow bricks (counted by the steps). Under a process
+    group rank 0 tunes and broadcasts, so every rank builds one
+    topology."""
     autotune = (cfg.autotune_capacities
                 if cfg.autotune_capacities is not None else True)
-    if cfg.brick_capacities or not autotune:
+    if (cfg.brick_capacities or not autotune
+            or (cfg.sparse_backend or "bricks") != "bricks"):
         return
-    sample = collate([ds[i % len(ds)] for i in range(16)])
-    cfg.brick_capacities = list(autotune_brick_capacities(
-        np.asarray(sample["coords"]), np.asarray(sample["mask"]),
-        num_levels=int(cfg.num_levels or 5), slack=1.5,
-        brick_shape=brick_shape_of(cfg)))
+    levels = int(cfg.num_levels or 5)
+    caps = np.zeros(levels, np.int64)
+    if process_index() == 0:
+        sample = collate([ds[i % len(ds)] for i in range(16)])
+        caps[:] = autotune_brick_capacities(
+            np.asarray(sample["coords"]), np.asarray(sample["mask"]),
+            num_levels=levels, slack=1.5, brick_shape=brick_shape_of(cfg))
+    cfg.brick_capacities = [int(c) for c in broadcast_host(caps)]
     logger.info("autotuned brick capacities: %s (brick shape %s)",
                 cfg.brick_capacities, brick_shape_of(cfg))
 
@@ -113,7 +135,7 @@ def autotune_capacities(cfg, ds, collate, logger) -> None:
 def dump_visualization(val_ds, collate, eval_forward, epoch: int,
                        save_dir: str, cfg, batch_size: int) -> str:
     """One random val scene per eval epoch (reference engine/distil.py:
-    551-648) to ``<save_dir>/vis/epoch-{E}/rank-0/``: ``outputs.npz``
+    551-648) to ``<save_dir>/vis/epoch-{E}/rank-{R}/``: ``outputs.npz``
     (raw_pc, raw_rgb, outputs, targets; the JAX package writes the same
     arrays as h5, which the card's machine cannot) and ``outputs.pcd``,
     the 4-panel cloud rgb | label colors | PCA(targets) | PCA(outputs)
@@ -133,7 +155,8 @@ def dump_visualization(val_ds, collate, eval_forward, epoch: int,
     labels = np.asarray(b["labels"])[0][mask].astype(int)
     preds = out[0].float().cpu().numpy()[mask]
 
-    tgt_dir = os.path.join(save_dir, "vis", f"epoch-{epoch}", "rank-0")
+    tgt_dir = os.path.join(save_dir, "vis", f"epoch-{epoch}",
+                           f"rank-{process_index()}")
     os.makedirs(tgt_dir, exist_ok=True)
     np.savez(os.path.join(tgt_dir, "outputs.npz"),
              raw_pc=xyz.astype(np.float32), raw_rgb=rgb.astype(np.float32),
@@ -155,8 +178,10 @@ def validate(cfg, val_loader, eval_forward, clip_sim, epoch: int, logger,
              fallback: float, wandb_run=None) -> float:
     """One validation pass (reference engine/distil.py:235-532):
     segmentation and grounding eval where ``clip_sim`` and ``eval_task``
-    ask for them, else the distil loss; logs the metrics and returns the
-    loss that picks the best checkpoint."""
+    ask for them, else the distil loss; each rank scores its own val
+    shard and the scalar metrics are averaged over the ranks (the JAX
+    trainer's mean of per-rank means). Logs the metrics and returns the
+    loss that picks the best checkpoint, the same on every rank."""
     task = cfg.eval_task
     if clip_sim is not None and task in ("all", "segmentation") \
             and cfg.cls_list_path:
@@ -166,14 +191,15 @@ def validate(cfg, val_loader, eval_forward, clip_sim, epoch: int, logger,
 
         with open(cfg.cls_list_path) as f:
             cls_names = list(json.load(f).values())
-        res = validate_segmentation(val_loader, eval_forward,
-                                    clip_sim.encode_text(cls_names), cfg)
+        res = mean_over_ranks(validate_segmentation(
+            val_loader, eval_forward, clip_sim.encode_text(cls_names), cfg))
         logger.info("Eval Segmentation: Epoch=[%d/%s] %s", epoch,
                     cfg.epochs, res)
     if clip_sim is not None and task in ("all", "grounding"):
         from ..distill.evaluate import validate_grounding
 
-        res = validate_grounding(val_loader, eval_forward, clip_sim, cfg)
+        res = mean_over_ranks(validate_grounding(val_loader, eval_forward,
+                                                 clip_sim, cfg))
         logger.info("Eval Grounding: Epoch=[%d/%s] %s", epoch, cfg.epochs,
                     res)
         if wandb_run is not None:
@@ -182,14 +208,16 @@ def validate(cfg, val_loader, eval_forward, clip_sim, epoch: int, logger,
         return res["DistilLoss"]
     losses = [float(eval_forward(b)[1]) for b in val_loader]
     val_loss = float(np.mean(losses)) if losses else fallback
+    val_loss = float(np.asarray(all_reduce_mean_host([val_loss]))[0])
     logger.info("Eval: Epoch=[%d/%s] DistilLoss=%.4f", epoch, cfg.epochs,
                 val_loss)
     return val_loss
 
 
 def _wandb(cfg, stamp, logger):
-    """A wandb run when ``use_wandb`` is set and wandb is installed."""
-    if not cfg.use_wandb:
+    """A wandb run on rank 0 when ``use_wandb`` is set and wandb is
+    installed."""
+    if not cfg.use_wandb or process_index() != 0:
         return None
     try:
         import wandb
@@ -207,30 +235,53 @@ def main(argv=None) -> Optional[str]:
     """Train; returns the directory the checkpoints went to."""
     cfg, device = get_parser(argv)
     _refuse_unported(cfg)
-    stamp = datetime.datetime.now().strftime("%d-%m-%Y-%H:%M")
+    formed = maybe_initialize_distributed(cfg, device)
+    try:
+        return _train(cfg, local_device(device))
+    finally:
+        if formed:
+            torch.distributed.destroy_process_group()
+
+
+def _train(cfg, device: torch.device) -> str:
+    rank, world = process_index(), process_count()
+    # one stamp, rank 0's, names every rank's run directory
+    stamp = datetime.datetime.fromtimestamp(int(broadcast_host(
+        np.int64(time.time())))).strftime("%d-%m-%Y-%H:%M")
     save_dir = os.path.join(cfg.save_path or "./experiments",
                             f"Distill-{cfg.dataset}", stamp)
-    logger = setup_logger("dropclip", save_dir=save_dir)
+    logger = setup_logger(
+        "dropclip", save_dir=save_dir, stderr=rank == 0,
+        filename="train.log" if rank == 0 else f"train.rank-{rank}.log")
     logger.info("config:\n%s", cfg)
     logger.info("device: %s", torch.cuda.get_device_name(device)
                 if device.type == "cuda" else device)
+    if distributed():
+        logger.info("process group: rank %d of %d, backend %s", rank, world,
+                    torch.distributed.get_backend())
     wandb_run = _wandb(cfg, stamp, logger)
     seed = int(cfg.manual_seed or 42)
     np.random.seed(seed)
 
     bsz = int(cfg.batch_size or 8)
+    bsz_val = int(cfg.batch_size_val or 8)
+    if bsz % world or bsz_val % world:
+        raise ValueError(f"batch_size {bsz} and batch_size_val {bsz_val} "
+                         f"must divide over {world} processes")
     train_ds, val_ds, collate = build_dataset_for(cfg, device)
     if len(train_ds) == 0:
         raise ValueError(f"no training scenes for {cfg.dataset} "
                          f"(root_dir {cfg.root_dir}, processed_dir "
                          f"{cfg.processed_dir})")
-    train_loader = DataLoader(train_ds, bsz, collate, shuffle=True,
-                              num_workers=int(cfg.workers or 8), seed=seed)
+    train_loader = DataLoader(train_ds, bsz // world, collate, shuffle=True,
+                              num_workers=int(cfg.workers or 8), seed=seed,
+                              shard_index=rank, num_shards=world)
     val_loader = None
     if val_ds is not None:
-        val_loader = DataLoader(val_ds, int(cfg.batch_size_val or 8),
-                                collate, shuffle=False,
-                                num_workers=int(cfg.workers_val or 2))
+        val_loader = DataLoader(val_ds, bsz_val // world, collate,
+                                shuffle=False,
+                                num_workers=int(cfg.workers_val or 2),
+                                shard_index=rank, num_shards=world)
     iters_per_epoch = max(len(train_loader), 1)
 
     autotune_capacities(cfg, train_ds, collate, logger)
@@ -253,6 +304,8 @@ def main(argv=None) -> Optional[str]:
                         start_epoch)
         else:
             logger.warning("no checkpoint found at %s", cfg.resume)
+    if distributed():
+        broadcast_module(model)
 
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg)
@@ -262,7 +315,7 @@ def main(argv=None) -> Optional[str]:
         out, m = eval_step(state, to_batch(b, device))
         return out, m["distil_loss"]
 
-    dropout_gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dropout_gen = torch.Generator(device=device).manual_seed(seed + 1 + rank)
 
     for epoch in range(start_epoch, int(cfg.epochs or 200)):
         train_loader.set_epoch(epoch)
@@ -292,8 +345,8 @@ def main(argv=None) -> Optional[str]:
                                    "train/step": state.step})
         if epoch_dropped:
             logger.warning(
-                "epoch %d: %d voxels/bricks dropped by brick-capacity "
-                "overflow or grid extent: scenes are being truncated; raise "
+                "epoch %d: %d voxels/bricks dropped by capacity overflow or "
+                "grid extent: scenes are being truncated; raise "
                 "brick_capacities or re-run the capacity autotune",
                 epoch, epoch_dropped)
             if wandb_run is not None:
@@ -306,18 +359,20 @@ def main(argv=None) -> Optional[str]:
             if cfg.visualize:
                 vdir = dump_visualization(
                     val_ds, collate, eval_forward, epoch, save_dir, cfg,
-                    int(cfg.batch_size_val or 8))
+                    bsz_val // world)
                 logger.info("visualization -> %s", vdir)
 
         if epoch % int(cfg.save_freq or 1) == 0:
+            # val_loss is the ranks' mean: is_best agrees on every rank
             is_best = val_loss < best_val
             best_val = min(val_loss, best_val)
-            save_checkpoint(save_dir, {
-                "step": state.step, "model": model.state_dict(),
-                "opt_state": state.opt_state, "epoch": epoch,
-                "best_val": best_val}, best=is_best)
-            logger.info("saved checkpoint (epoch %d, best=%s)", epoch,
-                        is_best)
+            if rank == 0:
+                save_checkpoint(save_dir, {
+                    "step": state.step, "model": model.state_dict(),
+                    "opt_state": state.opt_state, "epoch": epoch,
+                    "best_val": best_val}, best=is_best)
+                logger.info("saved checkpoint (epoch %d, best=%s)", epoch,
+                            is_best)
 
     logger.info("done; checkpoints in %s", save_dir)
     return save_dir

@@ -4,7 +4,7 @@ teachers read from one synthesised CLIP checkpoint file), the
 fusion upper bound of ``validate_upper_bound`` on one fake dataset,
 ``make_visualizations``' dataset dumps byte for byte; and the port's own
 runs on a checkpoint of its trainer (``validate_blender``, the teacher
-cache, the viz dumps, the refusals)."""
+cache, the viz dumps, the refusals), the gather engine's among them."""
 
 import json
 import os
@@ -26,6 +26,8 @@ from dropclip_tpu_torch.tools import (make_visualizations, run_eval,
                                       train_distil, validate_blender,
                                       validate_upper_bound)
 from dropclip_tpu_torch.viz import load_pcd
+
+from torch_ddp_worker import launch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(ROOT, "configs", "DistilBlender.yaml")
@@ -62,6 +64,17 @@ def _jax_main(module, argv, monkeypatch, capsys):
     module.main()
     return json.loads([l for l in capsys.readouterr().out.splitlines()
                        if l.startswith("{")][-1])
+
+
+def test_validate_blender_val_batch_divides_over_ranks(work, monkeypatch):
+    """validate_blender refuses a val batch that does not divide over the
+    ranks, as the trainer does: batch_size_val 1 at world size 2 would
+    otherwise score a global batch of 2."""
+    monkeypatch.setattr(validate_blender, "process_count", lambda: 2)
+    with pytest.raises(ValueError, match="must divide over 2 processes"):
+        validate_blender.main(["--config", YAML, "--device", "cpu", "--opts",
+                               *work.opts, "batch_size_val", "1", "resume",
+                               work.ckpt])
 
 
 def test_upper_bound_matches_jax_cli(work, monkeypatch, capsys):
@@ -270,3 +283,42 @@ def test_make_visualizations(work, monkeypatch, capsys):
         assert len(xyz) and col is not None
     with open(os.path.join(tdir, "test_0001_query_grasps.obj")) as f:
         assert f.read().count("o grasp_") == 10
+
+
+def test_gather_engine_trains_and_validates(work, capsys):
+    """``sparse_backend gather`` through the trainer (one epoch of the
+    tiny gather student) and ``validate_blender`` on its checkpoint. The
+    fake scenes are random clouds, denser than surfaces, so the default
+    level capacities (halving per level) overflow: the trainer warns with
+    the count, and validation refuses to score truncated scenes unless
+    allowed (the JAX package drops the same voxels and reports 0). Allowed,
+    the grounding metrics equal the trainer's own eval of the same
+    weights; at world size 2 (two gloo processes) each rank scores its
+    half of the val split and rank 0 prints the ranks' mean, finite and
+    with the same keys."""
+    opts = [*work.opts, "sparse_backend", "gather"]
+    ckpt = train_distil.main(
+        ["--config", YAML, "--device", "cpu", "--opts", *opts,
+         "batch_size", "2", "workers", "2", "epochs", "1",
+         "save_path", str(work.tmp / "gather"), "print_freq", "1"])
+    with open(os.path.join(ckpt, "train.log")) as f:
+        log = f.read()
+    assert "voxels/bricks dropped by capacity overflow" in log
+    base = ["--config", YAML, "--device", "cpu", "--opts", *opts, "resume",
+            ckpt]
+    with pytest.raises(RuntimeError, match="allow_capacity_overflow"):
+        validate_blender.main(base)
+    base += ["allow_capacity_overflow", "True"]
+    res = validate_blender.main(base)
+    capsys.readouterr()
+    assert f"Eval Grounding: Epoch=[0/1] {dict(list(res.items())[1:])}" \
+        in log
+    cmd = [sys.executable, "-m", "dropclip_tpu_torch.tools.validate_blender",
+           *base]
+    out = launch([cmd, cmd], 2)
+    for rc, _, err in out:
+        assert rc == 0, err[-3000:]
+    assert not out[1][1].strip()
+    two = json.loads(out[0][1].strip().splitlines()[-1])
+    assert set(two) == set(res)
+    assert all(np.isfinite(v) for k, v in two.items() if k != "eval_cfg")

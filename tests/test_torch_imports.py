@@ -2,9 +2,10 @@
 regex, yaml, h5py, triton, matplotlib, PIL or cv2 available (the card's
 machine has only torch, triton, numpy, scipy, einops, pytest and
 hypothesis; matplotlib and PIL are imported only inside the viz functions
-that draw, cv2 only inside the image readers), and its entry points (serve pipeline on either engine and
+that draw, cv2 only inside the image readers), and its entry points (serve pipeline on every engine and
 from a checkpoint, pillar topology, text encoder, CLIP, ingest staging,
-the trainer, the eval and viz CLIs, the DINO teachers and the extraction
+the gather engine, the trainer (one process or several), the eval and
+viz CLIs, the DINO teachers and the extraction
 CLIs, the raw-data ingest and the cleanup filters) refuse to run without a
 card unless asked for the CPU; the trainer's data paths (MV-TOD and
 REGRAD) read .npz scenes with no h5py, and the RLE codec runs without
@@ -36,7 +37,8 @@ for m in ("teachers.convert", "distill.evaluate", "viz",
           "teachers.dino_v1", "tools.dino_extract", "tools.clip_extract",
           "native", "data.rle", "data.blender", "data.regrad",
           "data.dataset_regrad", "geom.cleanup", "geom.knn", "grasp",
-          "grasp.grasps", "grasp.gripper"):
+          "grasp.grasps", "grasp.gripper", "sparse.ops", "sparse.topology",
+          "core.distributed", "core.mesh"):
     assert "dropclip_tpu_torch." + m in mods, m
 import torch
 torch.cuda.is_available = lambda: False
@@ -46,6 +48,7 @@ cfg = CfgNode(dict(arch_3d="tiny", feat_dim=8, voxel_capacity=64,
                    sparse_backend="bricks", clip_checkpoint="random",
                    clip_model="tiny-test"))
 pcfg = CfgNode(dict(cfg, sparse_backend="pillars"))
+gcfg = CfgNode(dict(cfg, sparse_backend="gather"))
 from dropclip_tpu_torch.sparse.pillar_topology import build_pillar_topology
 from dropclip_tpu_torch.teachers.clip import build_clip
 from dropclip_tpu_torch.tools.preprocess_data import stage_scene
@@ -66,6 +69,7 @@ empty_raw = tempfile.mkdtemp()
 import os
 os.makedirs(os.path.join(empty_raw, "train"))
 for make in (lambda: GroundingPipeline(cfg), lambda: GroundingPipeline(pcfg),
+             lambda: GroundingPipeline(gcfg),
              lambda: GroundingPipeline.from_checkpoint(y, "nowhere"),
              lambda: validate_blender.main(["--config", y]),
              lambda: validate_upper_bound.main(["--config", y]),
@@ -102,6 +106,7 @@ for make in (lambda: GroundingPipeline(cfg), lambda: GroundingPipeline(pcfg),
 GroundingPipeline(cfg, clip_sim=make_clip_sim(cfg, device="cpu"),
                   device="cpu")
 GroundingPipeline(pcfg, device="cpu")
+GroundingPipeline(gcfg, device="cpu")
 build_clip("tiny-test", device="cpu")
 build_clip("tiny-test-rn", device="cpu")
 build_dinov2("tiny-test", device="cpu")

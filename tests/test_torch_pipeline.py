@@ -271,14 +271,20 @@ def test_from_checkpoint_round_trips_the_trainers_checkpoint(tmp_path, rng):
 
 
 def test_gather_engine_refusals_name_their_item():
-    """The gather engine is not ported: the pipeline and the train and
-    eval steps refuse it, naming its ROADMAP item (queue 1 item 7.2)."""
+    """The gather engine, refused until its ROADMAP item (queue 1 item
+    7.2) was ported, now builds in the pipeline and the engine; what is
+    still refused is an engine the port does not have, named with the
+    ones it has."""
     from dropclip_tpu_torch.distill import engine
+    from dropclip_tpu_torch.sparse.unet import MinkUNet
 
     cfg = CfgNode(dict(arch_3d="tiny", feat_dim=8, voxel_capacity=64,
                        sparse_backend="gather", clip_checkpoint="random",
                        clip_model="tiny-test"))
-    for refuse in (lambda: GroundingPipeline(cfg, device="cpu"),
-                   lambda: engine._require_bricks(cfg)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7.2"):
+    assert isinstance(GroundingPipeline(cfg, device="cpu").model, MinkUNet)
+    assert isinstance(engine.build_student_for(cfg), MinkUNet)
+    bad = CfgNode(dict(cfg, sparse_backend="voxels"))
+    for refuse in (lambda: GroundingPipeline(bad, device="cpu"),
+                   lambda: engine.build_student_for(bad)):
+        with pytest.raises(ValueError, match="gather"):
             refuse()

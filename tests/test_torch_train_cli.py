@@ -2,7 +2,8 @@
 train_distil``) on the CPU: the canonical config with the tiny arch on a
 fake .npz dataset, one epoch with a checkpoint, then a resumed run at the
 next epoch; grounding eval and the visualization dump with a CLIP
-checkpoint file; options that wait for later slices raise."""
+checkpoint file, in one process and in two (gloo); options that wait
+for later slices raise."""
 
 import os
 import subprocess
@@ -15,6 +16,8 @@ import torch
 from dropclip_tpu_torch.core.checkpoint import restore_checkpoint
 from dropclip_tpu_torch.data.synthetic import write_fake_processed_dataset
 from dropclip_tpu_torch.tools import train_distil
+
+from torch_ddp_worker import launch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(ROOT, "configs", "DistilBlender.yaml")
@@ -58,17 +61,37 @@ def test_train_cli_one_epoch_then_resume(tmp_path):
 @pytest.mark.parametrize("key,value", [
     ("scan_epochs", "2"), ("clip_checkpoint", "random"),
     ("profile_dir", "/nonexistent"), ("visualize", "True")])
-def test_train_cli_refuses_unported_options(tmp_path, monkeypatch, key,
-                                            value):
-    """Each raises NotImplementedError naming its ROADMAP item, before
-    any data is read: scan_epochs and profile_dir on their own; grounding
-    eval (clip_checkpoint) and the visualization dump (visualize), which
-    run in one process, in several (WORLD_SIZE=2)."""
-    if key in ("clip_checkpoint", "visualize"):
-        monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_distil.main(_opts(str(tmp_path), str(tmp_path), 1, key,
-                                value))
+def test_train_cli_refuses_unported_options(tmp_path, key, value):
+    """scan_epochs and profile_dir raise NotImplementedError naming their
+    ROADMAP item, before any data is read. Grounding eval
+    (clip_checkpoint, the tiny-test text tower) and the visualization dump
+    (visualize), which raised in several processes until DDP was ported,
+    run at WORLD_SIZE=2 (two gloo processes, torchrun's variables): one
+    epoch of 2 global steps, rank 0 logging the eval and writing the
+    checkpoints, each rank dumping its own val scene."""
+    if key in ("scan_epochs", "profile_dir"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_distil.main(_opts(str(tmp_path), str(tmp_path), 1, key,
+                                    value))
+        return
+    data = str(tmp_path / "data")
+    write_fake_processed_dataset(data, n_scenes=4, n_objects=2, feat_dim=16,
+                                 fmt="npz")
+    cmd = [sys.executable, "-m", "dropclip_tpu_torch.tools.train_distil",
+           *_opts(data, str(tmp_path / "exp"), 1, key, value,
+                  "clip_model", "tiny-test")]
+    out = launch([cmd, cmd], 2)
+    for rc, _, err in out:
+        assert rc == 0, err[-3000:]
+    save = out[0][2].split("checkpoints in ")[-1].strip()
+    assert restore_checkpoint(save)["step"] == 2
+    assert "best_sim_loss_model.pt" in os.listdir(save)
+    if key == "clip_checkpoint":
+        assert "Eval Grounding: Epoch=[0/1]" in out[0][2]
+    else:
+        for r in range(2):
+            vis = os.path.join(save, "vis", "epoch-0", f"rank-{r}")
+            assert sorted(os.listdir(vis)) == ["outputs.npz", "outputs.pcd"]
 
 
 def test_train_cli_evaluates_with_a_clip_checkpoint(tmp_path):
