@@ -157,7 +157,38 @@
    after 3 steps, their parameters and BN statistics against two planted
    faults (the gradients, the BN moments not summed over the ranks),
    checkpoints from rank 0 only;
-12. prints the ``kernels`` JSON line, the card line and, last,
+12. the exported program (after the train path): ``tools/export_model``
+   at configs/DistilBlender.yaml (cap 8192, 8 queries x 8 negatives) on
+   the train CLI's checkpoint with ``--check``, saved as a ``.pt2`` and
+   loaded through ``serve.load_exported``: on a tabletop scene and on the
+   CLI's example inputs, masks equal to the live program's and sims within
+   2e-5, K1 16 times a call inside the artifact (its registered op), the
+   exported and the live call timed in turns; planted fault: one query
+   embedding perturbed;
+13. the scanned trainer (after the teachers):
+   ``make_scanned_train`` at the train path's recipe on 16 staged
+   tabletop scenes (6000 voxels), three chunks of two epochs (4 steps of
+   batch 8), one step captured as a CUDA graph and replayed, against the
+   eager loop on the same staged data and schedule (losses within 1e-3,
+   the parameters' and BN statistics' update gaps within the DDP
+   phase's limits; planted fault: the optimizer's count frozen in the
+   graph), the graph step's time against the eager step's, the
+   profiler's idle share of a chunk, K1's launches (32 recorded by the
+   capture, none counted while chunks replay, 32 a step among the
+   profiled chunk's kernels); ``train_distil`` with ``scan_epochs 2`` on
+   a fake 768-d .npz dataset (30 steps in one chunk, then a run that
+   resumes its checkpoint) and with ``profile_dir`` (a trace of steps
+   10-14 that ``core/xplane`` reads, K1 among its CUDA kernels);
+14. checkpoint conversion: a seeded MinkUNet14D written in
+   MinkowskiEngine's layout under each kernel-offset order, converted by
+   ``tools/convert_checkpoint --offset-order auto`` on probe scenes whose
+   targets that student produced (the right order chosen both times), the
+   result served through ``GroundingPipeline.from_checkpoint`` within 1e-6
+   of the source student's features; planted fault: the wrong order
+   forced;
+15. ``tools/profile.py`` on its four surfaces at full shapes (train and
+   infer name K1, teacher K3 and K7, every table read from CUDA kernels);
+16. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero. Without a CUDA card the
@@ -4955,6 +4986,592 @@ def teachers_phase(report):
     return total, rows
 
 
+# ---- the tooling: the scanned trainer as a CUDA graph, scan_epochs and
+# profile_dir, the exported program, tools/profile.py, checkpoint
+# conversion ----
+
+SCAN_DIR = os.path.join(ROOT, "build", "scan")
+SCAN_SCENES = 16  # staged tabletop scenes: two batch-8 steps an epoch
+SCAN_EPOCHS = 2  # epochs a chunk
+SCAN_CHUNKS = 3  # chunk 1 captures, chunk 2 is timed, chunk 3 profiled
+SCAN_WARM = 2  # epochs of eager steps to the state both sides start from
+# update gaps of the graph against the eager loop with the graph's
+# staged grid and row bounds: on an H100 the sound run reads 0.0 (the
+# same bits) and a frozen step count 0.21 (parameters) and 0.022 (BN
+# statistics) (PERF.md)
+SCAN_GAP = {"params": 1e-3, "stats": 1e-3}
+SCAN_CLI_SCENES = 30  # 15 steps an epoch at batch 2, as profile_dir needs
+EXPORT_SIMS = 2e-5  # the JAX --check limit (export_model.py:196-201)
+EXPORT_REPS = 20
+
+
+def scan_setup():
+    """configs/DistilBlender.yaml's recipe at full width (MinkUNet14D,
+    768-d, (4, 4, 2) bricks, 8192 voxels, float32, remat False, dropout
+    0) on SCAN_SCENES staged tabletop scenes (6000 voxels, random unit
+    targets), and the schedule of SCAN_CHUNKS chunks of SCAN_EPOCHS
+    epochs as the trainer draws it; the state that both the graph and
+    the eager loop start from is the student's (weights from SEED) after
+    SCAN_WARM epochs of eager steps on the card: from zero moments
+    AMSGrad's first updates are g / |g| element by element, which turns
+    float32 noise in a near-zero gradient into up to 2 lr of parameter,
+    so a shared warm start keeps those flips out of the comparison."""
+    import copy
+
+    from dropclip_tpu_torch.core.config import load_cfg
+    from dropclip_tpu_torch.data.synthetic import make_tabletop_coords
+    from dropclip_tpu_torch.distill.engine import (DistilBatch,
+                                                   build_student_for,
+                                                   make_train_step)
+    from dropclip_tpu_torch.distill.train_state import (create_train_state,
+                                                        make_optimizer)
+    from dropclip_tpu_torch.data.loader import DataLoader
+    from dropclip_tpu_torch.sparse.bricks import autotune_brick_capacities
+    from dropclip_tpu_torch.tools.train_distil import epoch_rows
+
+    cfg = load_cfg(os.path.join(ROOT, "configs", "DistilBlender.yaml"))
+    rng = np.random.RandomState(SEED + 21)
+    cap = int(cfg.voxel_capacity)
+    coords, mask = make_tabletop_coords(rng, SCAN_SCENES, cap, n_occ=6000,
+                                        ext=40)
+    cfg.brick_capacities = list(autotune_brick_capacities(
+        coords, mask, slack=1.5, brick_shape=(4, 4, 2)))
+    feats = rng.randn(SCAN_SCENES, cap, 6).astype(np.float32) * \
+        mask[..., None]
+    tgt = rng.randn(SCAN_SCENES, cap, int(cfg.feat_dim)).astype(np.float32)
+    tgt = tgt / np.linalg.norm(tgt, axis=-1, keepdims=True) * mask[..., None]
+    z = np.zeros((SCAN_SCENES, cap), np.int32)
+    data = DistilBatch(*(torch.as_tensor(a).cuda() for a in (
+        coords, mask, feats, tgt.astype(np.float32), z, z)))
+    host_model = build_student_for(
+        cfg, generator=torch.Generator().manual_seed(SEED + 3))
+    loader = DataLoader(list(range(SCAN_SCENES)), BATCH, None,
+                        seed=int(cfg.manual_seed))
+    epochs = SCAN_EPOCHS * SCAN_CHUNKS
+    rows = np.concatenate([epoch_rows(loader, e) for e in range(epochs)])
+    warm = create_train_state(host_model.cuda(),
+                              make_optimizer(cfg, SCAN_SCENES // BATCH))
+    step = make_train_step(cfg)
+    for e in range(epochs, epochs + SCAN_WARM):
+        for r in epoch_rows(loader, e):
+            step(warm, DistilBatch(*(t.index_select(
+                0, torch.as_tensor(r, device="cuda")) for t in data)))
+    torch.cuda.synchronize()
+    return cfg, data, copy.deepcopy(warm), rows
+
+
+class frozen_count:
+    """The planted fault of the scanned trainer: a graph whose optimizer
+    step count does not advance (so neither do the learning rate and the
+    bias corrections)."""
+
+    def __enter__(self):
+        from dropclip_tpu_torch.distill.train_state import AmsgradChain
+
+        self.cls, self.saved = AmsgradChain, AmsgradChain.update
+
+        def frozen(chain, model, opt_state, count=None):
+            norm = self.saved(chain, model, opt_state, count)
+            if count is not None:  # the graph's device count
+                count.sub_(1)
+            return norm
+
+        AmsgradChain.update = frozen
+
+    def __exit__(self, *exc):
+        self.cls.update = self.saved
+
+
+def scan_eager(cfg, data, start, rows, bounds=None):
+    """The per-step loop from a copy of the state ``start`` on the same
+    staged data and schedule, with ``make_train_step``'s ``bounds``:
+    (state, losses, ms per step)."""
+    import copy
+
+    from dropclip_tpu_torch.distill.engine import (DistilBatch,
+                                                   make_train_step)
+
+    state = copy.deepcopy(start)
+    step = make_train_step(cfg, bounds)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    losses, ms = [], []
+    for r in rows:
+        idx = torch.as_tensor(r, device="cuda")
+        batch = DistilBatch(*(t.index_select(0, idx) for t in data))
+        torch.cuda.synchronize()
+        t = time.time()
+        _, m = step(state, batch, gen)
+        losses.append(float(m["distil_loss"]))
+        ms.append((time.time() - t) * 1e3)
+    return state, losses, ms
+
+
+def scan_run(cfg, data, start, rows, report=None):
+    """``make_scanned_train`` from a copy of the state ``start`` over
+    SCAN_CHUNKS chunks: chunk 1 warms up,
+    captures one step and replays it, chunk 2 is timed (host clock around
+    the replays, synchronised), chunk 3 runs under the profiler (with
+    ``report``). Returns (state, losses, dropped, {chunk: ms},
+    {chunk: K1 counter}, K1 launches the capture recorded)."""
+    import copy
+
+    from dropclip_tpu_torch.distill.engine import make_scanned_train
+    from dropclip_tpu_torch.kernels.brick_conv3 import counter as k1_count
+
+    state = copy.deepcopy(start)
+    chunk = make_scanned_train(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    per = len(rows) // SCAN_CHUNKS
+    losses, dropped, wall, counted = [], [], {}, {}
+    for c in range(SCAN_CHUNKS):
+        part = rows[c * per:(c + 1) * per]
+
+        def run():
+            m = chunk(state, data, part, gen)[2]
+            losses.extend(m["distil_loss"].tolist())
+            dropped.extend(m["dropped_voxels"].tolist())
+
+        k1_count.launches = 0
+        torch.cuda.synchronize()
+        t = time.time()
+        if c == 2 and report is not None:
+            profile_phase((("scan_chunk", run),),
+                          (("K1", "brick_conv3_mma"),), report)
+        else:
+            run()
+        torch.cuda.synchronize()
+        wall[c] = (time.time() - t) * 1e3
+        counted[c] = k1_count.launches
+    captured = chunk.cache["step"].k1_launches
+    del chunk
+    torch.cuda.empty_cache()
+    return state, losses, dropped, wall, counted, captured
+
+
+def scan_train_phase(report):
+    """The scanned trainer at full width against two eager loops on the
+    same staged data and schedule from one warm state: the plain loop
+    (each batch's own grid, the weight gradients' row counts read back),
+    held by losses within TRAIN_LOSS_RTOL and update gaps within DDP_GAP;
+    and the loop with the graph's staged grid and row bounds (the same
+    arithmetic), held by update gaps within SCAN_GAP. Its step time
+    against the plain loop's, the profiler's idle share of a chunk, K1's
+    launches (32 recorded by the capture; none counted while chunks
+    replay, 32 a step in the profiled chunk's kernels), nothing dropped;
+    and the planted fault (the optimizer's count frozen in the graph),
+    whose gaps against the bounded loop must pass SCAN_GAP. Returns the
+    K1 launches the capture recorded."""
+    from dropclip_tpu_torch.distill.engine import staged_bounds
+
+    cfg, data, start, rows = scan_setup()
+    params = [n for n, _ in start.model.named_parameters()]
+    stats = [n for n, _ in start.model.named_buffers()]
+    init = {k: v.clone() for k, v in start.model.state_dict().items()}
+
+    def gaps(sd, ref):
+        return dict(params=update_gap(sd, ref, init, params),
+                    stats=update_gap(sd, ref, init, stats))
+
+    ref, ref_losses, ref_ms = scan_eager(cfg, data, start, rows)
+    ref_sd = ref.model.state_dict()
+    del ref
+    same, same_losses, _ = scan_eager(cfg, data, start, rows,
+                                      staged_bounds(cfg, data, BATCH))
+    same_sd = same.model.state_dict()
+    del same
+    state, losses, dropped, wall, counted, captured = scan_run(
+        cfg, data, start, rows, report)
+    got = state.model.state_dict()
+    plain, bounded = gaps(got, ref_sd), gaps(got, same_sd)
+    del state, got
+    torch.cuda.empty_cache()
+    with frozen_count():
+        f_state, f_losses, *_ = scan_run(cfg, data, start, rows)
+    fault = gaps(f_state.model.state_dict(), same_sd)
+    del f_state
+    torch.cuda.empty_cache()
+    per = len(rows) // SCAN_CHUNKS
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    f_rel = [abs(a - b) / abs(b) for a, b in zip(f_losses, ref_losses)]
+    graph_ms = wall[1] / per
+    eager_ms = float(np.median(ref_ms[1:]))
+    prof = report["profile"]["scan_chunk"]
+    print(f"scan: {len(rows)} steps in {SCAN_CHUNKS} chunks of {per} "
+          f"(batch {BATCH} of {SCAN_SCENES} staged scenes); losses graph "
+          f"{losses} eager {ref_losses} (max rel {max(rel)}), eager with "
+          f"the graph's bounds {same_losses}; update gaps against the "
+          f"plain loop {plain} (limit {DDP_GAP}), against the bounded loop "
+          f"{bounded} (limit {SCAN_GAP}); planted fault (count frozen): "
+          f"gaps against the bounded loop {fault}, losses max rel "
+          f"{max(f_rel)}; dropped {sum(dropped)}", flush=True)
+    print(f"scan: graph step {graph_ms} ms (chunk walls {wall}) against "
+          f"eager {eager_ms} ms (all {ref_ms}); K1 counted per chunk "
+          f"{counted}, recorded by the capture {captured}, in the profiled "
+          f"chunk's kernels {prof['K1']['launches']}; idle share of a chunk "
+          f"{prof['idle_share']}", flush=True)
+    check(max(rel) <= TRAIN_LOSS_RTOL, f"scan losses differ by {max(rel)}")
+    check(all(plain[k] <= v for k, v in DDP_GAP.items()),
+          f"scan update gaps {plain} past {DDP_GAP}")
+    check(all(bounded[k] <= v for k, v in SCAN_GAP.items()),
+          f"scan update gaps {bounded} past {SCAN_GAP}")
+    check(any(fault[k] > v for k, v in SCAN_GAP.items()),
+          f"the planted scan fault reads only {fault}")
+    check(sum(dropped) == 0, "scan: voxels dropped")
+    check(captured == 32, f"the capture recorded {captured} K1 launches")
+    check(counted[0] == 64 and counted[1] == counted[2] == 0,
+          f"K1 counted {counted}: want the warm-up's and the capture's 32 "
+          "each in chunk 1, and no Python launch while chunks replay")
+    check(prof["K1"]["launches"] == 32 * per,
+          f"the profiled chunk ran {prof['K1']['launches']} K1 kernels")
+    report["scan"] = dict(
+        losses=losses, eager_losses=ref_losses, bounded_losses=same_losses,
+        max_rel=max(rel), gaps=plain, gaps_bounded=bounded,
+        fault_gaps=fault, fault_max_rel=max(f_rel), limit_plain=DDP_GAP,
+        limit=SCAN_GAP, graph_step_ms=graph_ms,
+        eager_step_ms=eager_ms, eager_ms=ref_ms, chunk_wall_ms=wall,
+        k1_counted=counted, k1_captured=captured,
+        idle_share=prof["idle_share"], steps=len(rows))
+    return captured
+
+
+def train_cli(*opts):
+    """``tools/train_distil.main`` in process on the card with ``opts``
+    (MinkUNet14D at the YAML's recipe): (checkpoint dir, its train.log)."""
+    from dropclip_tpu_torch.tools import train_distil
+
+    save = train_distil.main([
+        "--config", os.path.join(ROOT, "configs", "DistilBlender.yaml"),
+        "--opts", *opts])
+    with open(os.path.join(save, "train.log")) as f:
+        return save, f.read()
+
+
+def scan_cli_phase(report):
+    """``train_distil`` on a fake 768-d .npz dataset of SCAN_CLI_SCENES
+    scenes a split at batch 2 (15 steps an epoch): ``scan_epochs 2`` over
+    2 epochs (one chunk of 30 steps, the per-step loop's count), then a
+    run that resumes its checkpoint for a third epoch (both in process),
+    then the per-step loop with ``profile_dir`` in a process of its own,
+    whose trace ``core/xplane`` reads (K1 among its CUDA kernels).
+    Checkpoints under build/scan/, deleted after."""
+    from dropclip_tpu_torch.core.checkpoint import restore_checkpoint
+    from dropclip_tpu_torch.core.xplane import DEVICE_SOURCE, read_totals
+    from dropclip_tpu_torch.data.synthetic import write_fake_processed_dataset
+
+    data = os.path.join(SCAN_DIR, "data")
+    prof_dir = os.path.join(SCAN_DIR, "profile")
+    shutil.rmtree(SCAN_DIR, ignore_errors=True)
+    write_fake_processed_dataset(data, n_scenes=SCAN_CLI_SCENES,
+                                 n_objects=3, feat_dim=768, fmt="npz")
+    base = ["root_dir", data, "batch_size", "2", "batch_size_val", "2",
+            "workers", "2", "workers_val", "1", "print_freq", "5",
+            "save_path", os.path.join(SCAN_DIR, "exp")]
+    try:
+        t = time.time()
+        first, log1 = train_cli(*base, "epochs", "2", "scan_epochs", "2")
+        t1 = time.time() - t
+        ck = restore_checkpoint(first)
+        check(ck is not None and ck["epoch"] == 1 and ck["step"] == 30
+              and "scan epochs [0..2): 30 steps" in log1,
+              "scan_epochs: no epoch-1 checkpoint of 30 steps")
+        t = time.time()
+        second, log2 = train_cli(*base, "epochs", "3", "scan_epochs", "2",
+                                 "resume", first)
+        t2 = time.time() - t
+        ck2 = restore_checkpoint(second)
+        check(f"resumed from {first} @ epoch 2" in log2
+              and "scan epochs [2..3): 15 steps" in log2
+              and ck2["epoch"] == 2 and ck2["step"] == 45,
+              "scan_epochs: the second run did not resume at epoch 2")
+        # in its own process, as a user runs it: this process's profiler
+        # sessions stay the ones that time kernels
+        t = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dropclip_tpu_torch.tools.train_distil",
+             "--config", os.path.join(ROOT, "configs", "DistilBlender.yaml"),
+             "--opts", *base, "epochs", "1", "profile_dir", prof_dir],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        t3 = time.time() - t
+        log3 = proc.stderr
+        check(proc.returncode == 0, f"profile_dir run failed: {log3[-2000:]}")
+        totals, source = read_totals(prof_dir)
+        k1 = sum(v for k, v in totals.items() if "brick_conv3_mma" in k)
+        check(source == DEVICE_SOURCE and k1 > 0
+              and "profiler trace of steps 10-14" in log3,
+              f"profile_dir: trace read from {source}, K1 {k1} s")
+    finally:
+        shutil.rmtree(SCAN_DIR, ignore_errors=True)
+    losses = re.findall(r"distil_loss ([0-9.]+) ", log1 + log2)
+    print(f"scan CLI: scan_epochs 2 over 2 epochs {t1:.1f} s, resumed for "
+          f"epoch 3 {t2:.1f} s (tail losses {losses}); profile_dir run "
+          f"{t3:.1f} s, its trace: {len(totals)} CUDA kernels, "
+          f"{sum(totals.values()) * 1e3:.2f} ms, K1 {k1 * 1e3:.2f} ms",
+          flush=True)
+    report["scan_cli"] = dict(seconds=[t1, t2, t3], tail_losses=losses,
+                              profile_ms=sum(totals.values()) * 1e3,
+                              profile_k1_ms=k1 * 1e3)
+
+
+def scan_phase(report):
+    """The scanned trainer (graph against eager, planted fault) and the
+    trainer CLI's scan_epochs and profile_dir. Returns the K1 launches
+    the capture recorded."""
+    captured = scan_train_phase(report)
+    scan_cli_phase(report)
+    profiler_count_check("after the scan phase", report)
+    return captured
+
+
+def profiler_count_check(where, report, warm=200, reps=101):
+    """``device_ms``'s premise after the graph phases: a fresh
+    torch.profiler session over ``warm + reps`` calls of a known eager op
+    (an in-place scale of a 1 Mi-element float32 vector, one kernel a
+    call, the card synchronised after each) must see at least ``reps``
+    kernels, so that the last ``reps`` calls are read. On the H100 a
+    session late in a long process loses the kernels of its first calls
+    (up to 55 seen; all of a one-call session's), with or without a live
+    CUDA graph (PERF.md); the loss is printed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(warm + reps):
+            x.mul_(1.0000001)
+            torch.cuda.synchronize()
+    events = prof.events()
+    calls = sum(1 for e in events if e.name == "aten::mul_"
+                and e.device_type == DeviceType.CPU)
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    print(f"profiler count {where}: {calls} calls, {kernels} kernels "
+          f"({calls - kernels} lost)", flush=True)
+    report.setdefault("profiler_counts", {})[where] = dict(
+        calls=calls, kernels=kernels)
+    check(calls == warm + reps and kernels >= reps,
+          f"profiler {where}: {kernels} kernels of {calls} calls")
+
+
+def export_phase(ckpt, report):
+    """``tools/export_model`` at configs/DistilBlender.yaml (cap 8192, nq
+    8, nneg 8) on the train CLI's checkpoint with ``--check``, then the
+    artifact loaded through ``serve.load_exported``: on a tabletop scene
+    and on the CLI's example inputs, masks equal to the live program's and
+    sims within EXPORT_SIMS, nothing dropped on the scene; K1 launched 16
+    times a call inside the artifact; the exported call's and the live
+    call's host time (synchronised, in turns); and a planted fault (one
+    query embedding perturbed), which must pass the limit. Returns the
+    artifact's K1 launches."""
+    from dropclip_tpu_torch.core.config import load_cfg
+    from dropclip_tpu_torch.data.synthetic import make_tabletop_coords
+    from dropclip_tpu_torch.kernels.brick_conv3 import counter as k1_count
+    from dropclip_tpu_torch.serve import load_exported
+    from dropclip_tpu_torch.tools import export_model
+
+    yaml = os.path.join(ROOT, "configs", "DistilBlender.yaml")
+    cfg = load_cfg(yaml)
+    path = os.path.join(ROOT, "build", "export", "student_serve.pt2")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        t = time.time()
+        export_model.main(["--config", yaml, "--ckpt-dir", ckpt, "--out",
+                           path, "--check"])
+        export_s = time.time() - t
+        size = os.path.getsize(path)
+        t = time.time()
+        run = load_exported(path)
+        load_s = time.time() - t
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    model = export_model.load_student(SimpleNamespace(
+        random_init=False, ckpt_dir=ckpt, ckpt_name="best_sim_loss_model",
+        seed=0), cfg, "cuda")
+    live = export_model.ServeProgram(cfg, model)
+    rng = np.random.RandomState(SEED + 31)
+    cap = int(cfg.voxel_capacity)
+    coords, mask = make_tabletop_coords(rng, 1, cap, n_occ=6000, ext=40)
+    feats = rng.randn(1, cap, 6).astype(np.float32) * mask[..., None]
+    q = rng.randn(8, 768).astype(np.float32)
+    n = rng.randn(8, 8, 768).astype(np.float32)
+    scene = tuple(torch.as_tensor(a, device="cuda") for a in (
+        coords, mask, feats, q / np.linalg.norm(q, axis=-1, keepdims=True),
+        n / np.linalg.norm(n, axis=-1, keepdims=True)))
+    example = export_model.example_inputs(cfg, 8, 8, seed=1, device="cuda")
+
+    def compare(got, want):
+        return (torch.equal(got[0], want[0]),
+                float((got[1] - want[1]).abs().max()),
+                int(got[2]), int(want[2]))
+
+    readings = {}
+    with torch.no_grad():
+        for tag, args in (("scene", scene), ("example", example)):
+            k1_count.launches = 0
+            got = run(*args)
+            torch.cuda.synchronize()
+            launches = k1_count.launches
+            readings[tag] = compare(got, live(*args)) + (launches,)
+        bad = list(scene)
+        bad[3] = bad[3].clone()
+        bad[3][0] = torch.roll(bad[3][0], 1)
+        fault = compare(run(*bad), live(*scene))
+        ms = {"exported": [], "live": []}
+        for _ in range(EXPORT_REPS):
+            for tag, fn in (("exported", run), ("live", live)):
+                torch.cuda.synchronize()
+                t = time.time()
+                fn(*scene)
+                torch.cuda.synchronize()
+                ms[tag].append((time.time() - t) * 1e3)
+    med = {k: float(np.median(v[1:])) for k, v in ms.items()}
+    print(f"export: {export_s:.1f} s to export and check ({size / 1e6:.1f} "
+          f"MB), {load_s:.2f} s to load; (masks equal, max |d sims|, dropped"
+          f" exported, dropped live, K1 launches a call): {readings}; "
+          f"planted fault (one query rolled): {fault}; call ms exported "
+          f"{med['exported']} live {med['live']} (all {ms})", flush=True)
+    for tag, (eq, d, dg, dl, k1) in readings.items():
+        check(eq and d <= EXPORT_SIMS and dg == dl,
+              f"exported program differs on the {tag}: {readings[tag]}")
+        check(k1 == 16, f"the artifact launched K1 {k1} times ({tag})")
+    check(readings["scene"][2] == 0, "export: the scene dropped voxels")
+    check(not fault[0] or fault[1] > EXPORT_SIMS,
+          f"the planted export fault reads only {fault}")
+    report["export"] = dict(export_s=export_s, load_s=load_s, bytes=size,
+                            readings=readings, fault=fault, call_ms=med,
+                            limit=EXPORT_SIMS)
+    return sum(r[4] for r in readings.values())
+
+
+def profile_cli_phase(report):
+    """``tools/profile.py`` on its four surfaces at full shapes on the
+    card, in one process of its own (as a user runs it; this process's
+    profiler sessions stay the ones that time kernels): each table read
+    from CUDA kernels, K1 named in ``train`` and ``infer``, K3
+    (attention) and K7 (``_add_ln_rows``) in ``teacher``. Traces under
+    build/profile/ (tens of MB each), deleted after."""
+    want = {"train": ("brick_conv3_mma",), "infer": ("brick_conv3_mma",),
+            "teacher": ("attention_kernel", "_add_ln_rows"), "fusion": ()}
+    logs = os.path.join(ROOT, "build", "profile")
+    code = ("import sys, time\n"
+            "from dropclip_tpu_torch.tools import profile\n"
+            "for s in sys.argv[2:]:\n"
+            "    t = time.time()\n"
+            "    profile.main(['--surface', s, '--top', '40', '--reps', '2',"
+            " '--logdir', sys.argv[1] + '/' + s])\n"
+            "    print(f'#### {s} {time.time() - t}', flush=True)\n")
+    try:
+        proc = subprocess.run([sys.executable, "-c", code, logs, *want],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+    check(proc.returncode == 0, f"tools/profile.py failed: "
+          f"{proc.stderr[-2000:]}")
+    parts = re.split(r"#### (\w+) ([0-9.]+)\n", proc.stdout)
+    out = {}
+    for surface, names in want.items():
+        i = parts.index(surface)
+        text = parts[i - 1]
+        total = re.search(r"total ([0-9.]+) ms over (\d+) ops \(([^)]*)\)",
+                          text)
+        table = text.split("stems:")[0]
+        found = {n: n in table for n in names}
+        out[surface] = dict(seconds=float(parts[i + 1]),
+                            device_ms=float(total.group(1)),
+                            ops=int(total.group(2)), named=found)
+        print(f"profile --surface {surface}: {out[surface]}; top rows:\n"
+              + "\n".join(table.splitlines()[3:9]), flush=True)
+        check(total.group(3) == "CUDA kernels" and all(found.values()),
+              f"profile {surface}: {total.group(0)}, kernels named {found}")
+    report["profile_cli"] = out
+
+
+def convert_phase(clip_sim, report):
+    """A seeded MinkUNet14D written in MinkowskiEngine's layout
+    (``to_minkowski_state_dict``) under each offset order, converted by
+    ``tools/convert_checkpoint --offset-order auto`` on 4 probe scenes
+    whose targets that student produced (``write_student_targets``): the
+    right order chosen both times, and the converted checkpoint served by
+    ``GroundingPipeline.from_checkpoint`` within SERVE_REL of the source
+    student's features on 2 tabletop scenes; the planted fault, the wrong
+    order forced, must read past it. Files under build/convert/, deleted
+    after."""
+    from dropclip_tpu_torch.convert import student_trees
+    from dropclip_tpu_torch.core.config import load_cfg
+    from dropclip_tpu_torch.data.synthetic import (
+        write_fake_processed_dataset, write_student_targets)
+    from dropclip_tpu_torch.distill.engine import build_student_for
+    from dropclip_tpu_torch.pipeline import GroundingPipeline
+    from dropclip_tpu_torch.sparse.convert_student import \
+        to_minkowski_state_dict
+    from dropclip_tpu_torch.tools import convert_checkpoint
+
+    root = os.path.join(ROOT, "build", "convert")
+    yaml = os.path.join(ROOT, "configs", "DistilBlender.yaml")
+    cfg = load_cfg(yaml)
+    shutil.rmtree(root, ignore_errors=True)
+    model = build_student_for(
+        cfg, generator=torch.Generator().manual_seed(SEED + 5)).cuda()
+    write_fake_processed_dataset(os.path.join(root, "probe"), n_scenes=4,
+                                 splits=("test",), n_objects=200,
+                                 n_points_per_obj=1, feat_dim=768,
+                                 fmt="npz")
+    write_student_targets(os.path.join(root, "probe"), "test", cfg, model,
+                          device="cuda")
+    clouds, rgbs = make_clouds(2)
+    readings = {}
+    try:
+        for order, forced in (("x_fastest", None), ("z_fastest", None),
+                              ("x_fastest", "z_fastest")):
+            tag = order if forced is None else f"{order}_as_{forced}"
+            pth = os.path.join(root, f"{order}.pth")
+            if not os.path.exists(pth):
+                sd = to_minkowski_state_dict(*student_trees(
+                    model.state_dict()), arch="MinkUNet14D",
+                    offset_order=order)
+                torch.save({k: torch.as_tensor(v) for k, v in sd.items()},
+                           pth)
+            out = os.path.join(root, tag)
+            args = ["--torch-ckpt", pth, "--out", out, "--config", yaml]
+            args += (["--offset-order", forced] if forced else [
+                "--offset-order", "auto", "--probe-data",
+                os.path.join(root, "probe")])
+            t = time.time()
+            convert_checkpoint.main(args)
+            secs = time.time() - t
+            with open(os.path.join(out, "convert_meta.json")) as f:
+                meta = json.load(f)
+            with mock.patch("dropclip_tpu_torch.pipeline.make_clip_sim",
+                            return_value=clip_sim):
+                pipe = GroundingPipeline.from_checkpoint(
+                    yaml, out, clip_checkpoint="random", device="cuda")
+            ref = GroundingPipeline(cfg, clip_sim=clip_sim, device="cuda")
+            ref.model.load_state_dict(model.state_dict())
+            worst = 0.0
+            for x, r in zip(clouds, rgbs):
+                vox, feats = pipe._host_voxelize(x, r)
+                args3 = (vox.coords[None], vox.mask[None], feats[None])
+                got = pipe._forward(*args3)
+                want = ref._forward(*args3)
+                worst = max(worst, float((got - want).abs().max())
+                            / float(want.abs().max()))
+            readings[tag] = dict(order=meta["offset_order"],
+                                 scores=meta.get("auto_scores"),
+                                 feature_rel=worst, seconds=secs)
+            shutil.rmtree(out, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"convert: {readings}", flush=True)
+    for order in ("x_fastest", "z_fastest"):
+        r = readings[order]
+        check(r["order"] == order and r["feature_rel"] <= SERVE_REL,
+              f"convert --offset-order auto on {order}: {r}")
+    fault = readings["x_fastest_as_z_fastest"]["feature_rel"]
+    check(fault > SERVE_REL, f"the planted convert fault reads only {fault}")
+    report["convert"] = readings
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script measures the "
@@ -5047,19 +5664,28 @@ def main():
     ingest_cpu_phase(report)
     run_eval_cpu_phase(report)
     k1_train_n, k1_train, cli = train_phase(report)
+    k1_export = export_phase(cli[1], report)
     k1_eval_n, k6_eval_n = eval_phase(cfg, cli, report)
     k1_ddp = ddp_phase(report)
     k1_raw, k6_raw = raw_check_phase(raw, report)
     tn, trows = teachers_phase(report)
+    # after the teachers: the graph and its profiled replays came before
+    # the teachers' short profiler sessions in two runs where those
+    # sessions missed kernels
+    k1_scan = scan_phase(report)
+    convert_phase(clip_sim, report)
+    profile_cli_phase(report)
 
     kernels = [
         dict(name="K1 brick_conv3", route="cuda",
              source="dropclip_tpu_torch/csrc/brick_conv3.cu",
              replaces="dropclip_tpu/sparse/pallas_conv.py:125",
-             launches=k1_n + k1_train_n + k1_eval_n + k1_raw + k1_ddp,
+             launches=(k1_n + k1_train_n + k1_eval_n + k1_raw + k1_ddp
+                       + k1_scan + k1_export),
              serve_launches=k1_n, train_launches=k1_train_n,
              eval_launches=k1_eval_n, raw_launches=k1_raw,
-             ddp_launches=k1_ddp, **k1,
+             ddp_launches=k1_ddp, scan_captured_launches=k1_scan,
+             export_launches=k1_export, **k1,
              **k1_train, regrad_layout={
                  k: v for k, v in report["regrad_k1"].items()
                  if k != "rows"}),

@@ -7,8 +7,9 @@ yields the same tree); nothing here imports jax.
 - Student (``MinkUNetBricks`` or ``MinkUNetPillars``: one flax tree for
   both engines, as in the JAX package): ``params`` + ``batch_stats``
   flatten one to one onto the module tree — sparse kernels stay
-  (K, Cin, Cout) in ``bricks._NBR_OFFSETS`` order (the pillar engine
-  reshapes them to (xy-dirs, dz, Cin, Cout) at use), BN maps
+  (K, Cin, Cout) in lexicographic offset order (``bricks._offsets``;
+  the pillar engine reshapes them to (xy-dirs, dz, Cin, Cout) at use), BN
+  maps
   ``scale``/``bias`` (params) and ``mean``/``var`` (batch stats).
 - Optimizer state: optax's ``ScaleByAmsgradState`` (``mu``, ``nu``,
   ``nu_max`` as param trees, ``count``) -> ``distill.train_state``'s
@@ -32,7 +33,7 @@ yields the same tree); nothing here imports jax.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +62,22 @@ def student_state_dict(params: Mapping[str, Any],
     sd = {k: _tensor(v) for k, v in _flatten(params).items()}
     sd.update({k: _tensor(v) for k, v in _flatten(batch_stats).items()})
     return sd
+
+
+def student_trees(state_dict: Mapping[str, Any]
+                  ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of ``student_state_dict``: a port student's state dict
+    -> the flax (params, batch_stats) trees as nested dicts of numpy
+    arrays (BN ``mean``/``var`` are batch statistics, the rest
+    parameters)."""
+    trees: Tuple[Dict[str, Any], Dict[str, Any]] = ({}, {})
+    for key, val in state_dict.items():
+        *path, leaf = key.split(".")
+        node = trees[leaf in ("mean", "var")]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = val.detach().cpu().float().numpy()
+    return trees
 
 
 def amsgrad_opt_state(mu: Mapping[str, Any], nu: Mapping[str, Any],

@@ -17,35 +17,48 @@ from typing import Callable
 import torch
 
 
+def sgdr_tensor(base_lr: float, eta_min: float = 0.0, t_0: float = 1.0,
+                t_mult: int = 1) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Return ``lr(t)`` on a float32 tensor ``t`` of fractional epochs
+    (SGDR, Loshchilov & Hutter), as torch's
+    ``CosineAnnealingWarmRestarts`` stepped with fractional epochs: tensor
+    ops only, on ``t``'s device, with no host read, so a captured CUDA
+    graph can compute the rate from a step counter on the card. Float32,
+    in the JAX function's order."""
+    if t_0 <= 0:
+        raise ValueError(f"t_0 must be positive, got {t_0}")
+    if t_mult < 1:
+        raise ValueError(f"t_mult must be >= 1, got {t_mult}")
+
+    def lr_at(t: torch.Tensor) -> torch.Tensor:
+        if t_mult == 1:
+            t_cur = torch.remainder(t, t_0)
+            t_i = torch.full_like(t, t_0)
+        else:
+            n = torch.where(t > 0, torch.floor(torch.log(
+                t / t_0 * (t_mult - 1) + 1) / math.log(t_mult)), t * 0)
+            t_start = t_0 * (t_mult ** n - 1) / (t_mult - 1)
+            t_i = t_0 * t_mult ** n
+            t_cur = t - t_start
+        return eta_min + (base_lr - eta_min) * (
+            1 + torch.cos(math.pi * t_cur / t_i)) / 2
+
+    return lr_at
+
+
 def cosine_annealing_warm_restarts(
     base_lr: float,
     eta_min: float = 0.0,
     t_0: float = 1.0,
     t_mult: int = 1,
 ) -> Callable[[float], float]:
-    """Return ``lr(t)`` (a Python float) for fractional epoch ``t`` (SGDR,
-    Loshchilov & Hutter), as torch's ``CosineAnnealingWarmRestarts``
-    stepped with fractional epochs. Computed in float32 CPU tensor ops in
-    the JAX function's order, so both packages' optimizers scale by the
-    same float32 rate."""
-    if t_0 <= 0:
-        raise ValueError(f"t_0 must be positive, got {t_0}")
-    if t_mult < 1:
-        raise ValueError(f"t_mult must be >= 1, got {t_mult}")
+    """Return ``lr(t)`` (a Python float) for fractional epoch ``t``:
+    ``sgdr_tensor`` on a float32 CPU tensor, so both packages' optimizers
+    scale by the same float32 rate."""
+    on_tensor = sgdr_tensor(base_lr, eta_min, t_0, t_mult)
 
     def lr_at(t: float) -> float:
-        t = torch.tensor(t, dtype=torch.float32)
-        if t_mult == 1:
-            t_cur = torch.remainder(t, t_0)
-            t_i = torch.tensor(t_0, dtype=torch.float32)
-        else:
-            n = torch.floor(torch.log(t / t_0 * (t_mult - 1) + 1)
-                            / math.log(t_mult)) if t > 0 else t * 0
-            t_start = t_0 * (t_mult ** n - 1) / (t_mult - 1)
-            t_i = t_0 * t_mult ** n
-            t_cur = t - t_start
-        return float(eta_min + (base_lr - eta_min) * (
-            1 + torch.cos(math.pi * t_cur / t_i)) / 2)
+        return float(on_tensor(torch.tensor(t, dtype=torch.float32)))
 
     return lr_at
 

@@ -19,7 +19,7 @@ per-epoch ``with`` block guarantees cleanup on early exit).
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator
+from typing import Callable, Iterator, List
 
 import numpy as np
 
@@ -59,15 +59,20 @@ class DataLoader:
             rng.shuffle(idx)
         return idx[self.shard_index::self.num_shards]
 
-    def __iter__(self) -> Iterator:
+    def batch_indices(self) -> List[np.ndarray]:
+        """The dataset indices of this epoch's batches, in order."""
         order = self._order()
-        nb = len(self)
+        return [order[b * self.batch_size:(b + 1) * self.batch_size]
+                for b in range(len(self))]
+
+    def __iter__(self) -> Iterator:
+        batches = self.batch_indices()
+        nb = len(batches)
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             futures = []
 
             def submit(b):
-                lo = b * self.batch_size
-                sel = order[lo: lo + self.batch_size]
+                sel = batches[b]
                 futures.append(pool.submit(
                     lambda s: self.collate([self.dataset[int(i)] for i in s]),
                     sel))

@@ -211,16 +211,20 @@ def write_fake_processed_dataset(root: str, n_scenes: int = 3,
                                  splits: Tuple[str, ...] = ("train", "test"),
                                  n_objects: int = 3, feat_dim: int = 16,
                                  n_views: int = 4, seed: int = 0,
-                                 fmt: str = "h5") -> None:
+                                 fmt: str = "h5",
+                                 n_points_per_obj: int = 120) -> None:
     """Write a miniature processed dataset in the reference scene schema
     (tools/preprocess_data.py:285-297), one dir per scene: ``fmt`` "h5"
     gives ``.h5py`` files (the JAX package's scenes, from the same seed),
-    "npz" numpy archives of the same arrays."""
+    "npz" numpy archives of the same arrays. ``n_points_per_obj`` 1 with
+    up to 254 objects labels nearly every voxel apart (probe scenes for
+    ``write_student_targets``)."""
     ext = {"h5": "h5py", "npz": "npz"}[fmt]
     rng = np.random.default_rng(seed)
     for split in splits:
         for s in range(n_scenes):
-            raw = make_raw_scene(rng, n_objects=n_objects, n_views=n_views)
+            raw = make_raw_scene(rng, n_objects=n_objects, n_views=n_views,
+                                 n_points_per_obj=n_points_per_obj)
             n = len(raw["points"])
             k = n_objects + 1
             feats = rng.normal(size=(k, feat_dim)).astype(np.float32)
@@ -445,3 +449,54 @@ def write_fake_raw_regrad(root: str, n_scenes: int = 1, n_objects: int = 2,
     _merge_json(os.path.join(root, "cls_map.json"),
                 {n: i for i, n in enumerate(CLS_NAMES)})
     return sids
+
+
+def write_student_targets(root: str, split: str, cfg, model,
+                          device=None) -> int:
+    """Rewrite the per-object features of every scene of ``root/split``
+    (a processed dataset, e.g. ``write_fake_processed_dataset``'s) as the
+    normalised mean of ``model``'s output over that object's voxels, the
+    scene read as ``MVTODDataset`` serves it (no augmentation): targets
+    that this student produced, for probes that must tell its weights
+    from a scrambled copy (``tools/convert_checkpoint``'s offset order).
+    Takes one sample a scene (``use_k_views`` > 1 or ``use_full_pc``); runs
+    on ``device`` (the card unless the caller asks for the CPU). Returns
+    the number of scenes rewritten."""
+    import torch
+
+    from ..core.device import resolve_device
+    from ..distill.engine import build_topology
+    from .dataset_blender import MVTODDataset
+    from .scene_io import read_scene, write_scene
+
+    cfg = cfg.clone()
+    cfg.root_dir = root
+    cfg.use_augmentation = False
+    device = resolve_device(device)
+    ds = MVTODDataset(cfg, split=split, device=device)
+    model = model.to(device).eval()
+    for i, (path, _) in enumerate(ds.data):
+        b = MVTODDataset.collate([ds[i]])
+        coords, mask, feats = (torch.as_tensor(np.asarray(b[k]),
+                                               device=device)
+                               for k in ("coords", "mask", "in_feats"))
+        with torch.no_grad():
+            out = model(build_topology(cfg, coords, mask), feats.float())
+            out = (out[0] if isinstance(out, tuple) else out)[0]
+        out = out.float().cpu().numpy()
+        # each sampled point's object and voxel (a voxel's target is its
+        # representative point's object feature)
+        inv = np.asarray(b["inverse_map"])[0]
+        labels = np.asarray(b["raw_label"][0])[inv >= 0]
+        vox = inv[inv >= 0]
+        scene = read_scene(path)
+        feats = scene.obj_feats.copy()
+        for k in np.unique(labels):
+            m = out[vox[labels == k]].mean(0)
+            if np.linalg.norm(m) > 0:  # all-zero where voxels were dropped
+                feats[k] = m / np.linalg.norm(m)
+        write_scene(path, xyz=scene.xyz, rgb=scene.rgb, label=scene.label,
+                    vis_mask=scene.vis_mask, obj_feats=feats,
+                    objects_info=scene.objects_info)
+    return len(ds.data)
+

@@ -25,7 +25,7 @@ comes with a later slice.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,21 +49,24 @@ def _backend(cfg) -> str:
     return backend
 
 
-def build_topology(cfg, coords: torch.Tensor, mask: torch.Tensor):
+def build_topology(cfg, coords: torch.Tensor, mask: torch.Tensor,
+                   grid_bits: Optional[int] = None):
     """The topology of (B, M, 3) coords on their device for
     ``cfg.sparse_backend``. Gather: ``build_unet_topology`` at the
     default level capacities. Bricks: brick capacities from
-    ``cfg.brick_capacities`` (None -> the M//8 rule); the grid is the
-    smallest that holds every voxel of the batch, at least the JAX
-    package's fixed 5 (+-64 voxels, which drops much of a REGRAD scene at
-    1 mm once augmented)."""
+    ``cfg.brick_capacities`` (None -> the M//8 rule); the grid is
+    ``grid_bits``, or else the smallest that holds every voxel of the
+    batch (a read of two numbers), at least the JAX package's fixed 5
+    (+-64 voxels, which drops much of a REGRAD scene at 1 mm once
+    augmented)."""
     num_levels = int(cfg.num_levels or 5)
     if _backend(cfg) == "gather":
         return build_unet_topology(coords, mask, num_levels=num_levels)
     caps = cfg.brick_capacities
+    if grid_bits is None:
+        grid_bits = grid_bits_for(coords, mask)
     return build_brick_topology(
-        coords, mask, num_levels=num_levels,
-        grid_bits=grid_bits_for(coords, mask),
+        coords, mask, num_levels=num_levels, grid_bits=grid_bits,
         brick_capacities=tuple(caps) if caps else None,
         brick_shape=brick_shape_of(cfg))
 
@@ -201,25 +204,44 @@ def _global_metrics(metrics: Dict[str, torch.Tensor]
     return {k: v.to(metrics[k].dtype) for k, v in zip(keys, summed)}
 
 
-def make_train_step(cfg):
+def _gradients(cfg, model, batch: DistilBatch,
+               generator: Optional[torch.Generator],
+               grid_bits: Optional[int] = None,
+               wgrad_rows: Optional[Tuple[int, ...]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """The step's forward and backward: the parameters' ``.grad`` set
+    anew, and the step's metrics as device tensors. ``wgrad_rows``: the
+    brick topology's static weight-gradient row bounds, or None."""
+    topo = build_topology(cfg, batch.coords, batch.mask, grid_bits)
+    if wgrad_rows is not None:
+        topo = topo._replace(wgrad_rows=wgrad_rows)
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    out = model(topo, batch.in_feats, generator=generator)
+    loss, metrics = _compute_losses(out, batch, cfg)
+    loss.backward()
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["dropped_voxels"] = topology_dropped(topo)
+    return metrics
+
+
+def make_train_step(cfg, bounds: Optional[Tuple[int, Any]] = None):
     """Returns ``train_step(state, batch, generator=None) -> (state,
     metrics)``: one optimizer step in place on ``state``; ``generator``
     draws the dropout masks. The metrics are device tensors:
     ``distil_loss``, ``total_loss`` (and ``aux_loss``), ``grad_norm``
     (before clipping) and ``dropped_voxels``, all of the global batch
-    under a process group."""
+    under a process group. ``bounds``: None (each batch's own grid, the
+    weight gradients read their row counts), or ``staged_bounds``' grid
+    and row bounds, fixed as the scanned trainer fixes them."""
+    grid_bits, wgrad_rows = bounds or (None, None)
+
     def train_step(state: DistilTrainState, batch: DistilBatch,
                    generator: Optional[torch.Generator] = None):
-        topo = build_topology(cfg, batch.coords, batch.mask)
         model = state.model
-        model.train()
-        for p in model.parameters():
-            p.grad = None
-        out = model(topo, batch.in_feats, generator=generator)
-        loss, metrics = _compute_losses(out, batch, cfg)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["dropped_voxels"] = topology_dropped(topo)
+        metrics = _gradients(cfg, model, batch, generator, grid_bits,
+                             wgrad_rows)
         if distributed():
             all_reduce_gradients(p for p in model.parameters()
                                  if p.grad is not None)
@@ -230,12 +252,197 @@ def make_train_step(cfg):
     return train_step
 
 
+def staged_bounds(cfg, data: DistilBatch, batch_size: int
+                  ) -> Tuple[int, Optional[Tuple[int, ...]]]:
+    """What a scanned trainer fixes once from its staged scenes: the brick
+    grid that holds every voxel of them (``grid_bits_for``, a read of two
+    numbers), and per level a bound on the occupied voxel rows of any
+    batch of ``batch_size`` of them, ``batch_size`` times the most that
+    one scene occupies there (one read per level; None off the brick
+    engine). A scene's topology does not depend on the batch it rides in,
+    and a grid larger than a batch's own gives the same topology
+    (``grid_bits_for``), so the bounds hold for every batch."""
+    grid_bits = grid_bits_for(data.coords, data.mask)
+    if _backend(cfg) != "bricks":
+        return grid_bits, None
+    most = None
+    for s0 in range(0, data.coords.shape[0], 16):  # 16 scenes at a time
+        topo = build_topology(cfg, data.coords[s0:s0 + 16],
+                              data.mask[s0:s0 + 16], grid_bits)
+        n = torch.stack([lv.occ.flatten(1).sum(1).amax()
+                         for lv in topo.levels])
+        most = n if most is None else torch.maximum(most, n)
+    return grid_bits, tuple(int(v) * batch_size for v in most)
+
+
+_METRIC_KEYS = ("distil_loss", "total_loss", "aux_loss", "grad_norm",
+                "dropped_voxels")
+
+
+class _ScannedStep:
+    """One step of a scanned chunk on the staged data: the batch gathered
+    by row ``index`` of ``rows`` (both on the device), the forward and
+    backward, the optimizer's ``update`` with ``count``, and the step's
+    metrics written to row ``index`` of ``out`` before ``index`` advances.
+    Every
+    index and counter lives on the device, so the step reads nothing back
+    to the host; on the card ``capture`` records it as a CUDA graph, each
+    replay of which runs the next row."""
+
+    def __init__(self, cfg, state: DistilTrainState, data: DistilBatch,
+                 steps: int, batch_size: int,
+                 generator: Optional[torch.Generator], grid_bits: int,
+                 wgrad_rows: Optional[Tuple[int, ...]]):
+        dev = data.coords.device
+        self.cfg, self.state, self.data = cfg, state, data
+        self.generator, self.grid_bits = generator, grid_bits
+        self.wgrad_rows = wgrad_rows
+        self.keys = [k for k in _METRIC_KEYS
+                     if k != "aux_loss" or cfg.use_aux_loss
+                     or cfg.use_cls_head]
+        self.rows = torch.zeros((steps, batch_size), dtype=torch.int64,
+                                device=dev)
+        self.index = torch.zeros((), dtype=torch.int64, device=dev)
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.out = torch.zeros((steps, len(self.keys)), dtype=torch.float64,
+                               device=dev)
+        self.graph = None
+        self.addresses = None
+        self.k1_launches = 0  # K1 launches that the capture recorded
+
+    def __call__(self) -> None:
+        state = self.state
+        idx = self.rows.index_select(0, self.index.view(1))[0]
+        batch = DistilBatch(*(t.index_select(0, idx) for t in self.data))
+        m = _gradients(self.cfg, state.model, batch, self.generator,
+                       self.grid_bits, self.wgrad_rows)
+        m["grad_norm"] = state.tx.update(state.model, state.opt_state,
+                                         self.count)
+        vals = torch.stack([m[k].double() for k in self.keys])
+        self.out.index_copy_(0, self.index.view(1), vals[None])
+        self.index.add_(1)
+
+    def state_tensors(self):
+        """The tensors a step changes in place: parameters, buffers (the
+        BN statistics) and the optimizer's moments."""
+        model, opt = self.state.model, self.state.opt_state
+        return ([*model.parameters(), *model.buffers()]
+                + [t for st in opt["moments"].values() for t in st.values()])
+
+    def held(self):
+        """The addresses a captured graph holds."""
+        return [t.data_ptr() for t in (*self.state_tensors(), *self.data)]
+
+    def capture(self) -> None:
+        """Warm up on a side stream (K1's build and load, its tap tables,
+        the BLAS handles, autograd), put the state back as it was, then
+        capture one step. Raises if the capture fails: nothing falls back
+        to eager steps on the card."""
+        from ..kernels.brick_conv3 import counter
+
+        gen = self.generator
+        saved = [t.detach().clone() for t in self.state_tensors()]
+        gen_state = gen.get_state() if gen is not None else None
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.index.zero_()
+            self()
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.no_grad():
+            for t, v in zip(self.state_tensors(), saved):
+                t.copy_(v)
+        del saved
+        if gen is not None:
+            gen.set_state(gen_state)
+        for p in self.state.model.parameters():
+            p.grad = None
+        self.graph = torch.cuda.CUDAGraph()
+        if gen is not None and float(self.cfg.dropout_rate or 0) > 0:
+            # each replay draws the next dropout masks from ``gen``
+            self.graph.register_generator_state(gen)
+        before = counter.launches
+        with torch.cuda.graph(self.graph):
+            self()
+        self.k1_launches = counter.launches - before
+        self.addresses = self.held()
+
+    def run(self, schedule: torch.Tensor) -> torch.Tensor:
+        """Every row of ``schedule`` (steps, B), as graph replays on the
+        card or eager calls on the CPU; (steps, keys) float64 metrics,
+        read back once."""
+        n = schedule.shape[0]
+        self.rows[:n].copy_(schedule)
+        self.index.zero_()
+        self.count.fill_(int(self.state.opt_state["count"]))
+        for _ in range(n):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self()
+        return self.out[:n].cpu()
+
+
 def make_scanned_train(cfg):
-    """The JAX package's ``lax.scan`` trainer (N steps in one program)."""
-    raise NotImplementedError(
-        "make_scanned_train is not ported: N steps captured as one CUDA "
-        "graph waits for its ROADMAP queue 1 item, make_scanned_train as a "
-        "CUDA graph")
+    """The JAX package's ``lax.scan`` trainer (``engine.py:151-184``): N
+    optimizer steps over data staged on the device, with no host sync
+    inside a chunk.
+
+    Returns ``train_chunk(state, data, schedule, generator=None) ->
+    (state, generator, metrics)``: ``data`` is one ``DistilBatch`` with a
+    leading scene axis on the device, ``schedule`` (steps, B) the scene
+    indices of each step, ``generator`` the dropout generator, and
+    ``metrics`` every step's scalar metrics stacked on axis 0 (read back
+    once per chunk). Each step is ``make_train_step``'s, with three
+    things fixed once from the staged data, so that the step reads
+    nothing back to the host (``staged_bounds``): the brick grid, the
+    k3 convs' weight-gradient row bounds (the topology's ``wgrad_rows``)
+    and the optimizer's count as a device tensor (``AmsgradChain.update``
+    with ``count``).
+
+    On the card one step is captured as a CUDA graph (the counterpart of
+    one jitted ``lax.scan``) and replayed for each row of the schedule: a
+    device counter selects the row, advances the optimizer's count and
+    places the step's metrics. A capture that fails raises; nothing falls
+    back to eager steps on the card. The graph holds the state's tensors:
+    a state whose tensors were replaced (a checkpoint loaded in) is
+    captured anew. On the CPU the same step runs eagerly, row by row.
+    Under a process group it raises: the staged data is one process's
+    (the JAX trainer asserts a single device)."""
+    cache: Dict[str, Any] = {}
+
+    def train_chunk(state: DistilTrainState, data: DistilBatch,
+                    schedule, generator: Optional[torch.Generator] = None):
+        if distributed():
+            raise RuntimeError("make_scanned_train runs one process on one "
+                               "device; the per-step loop trains "
+                               "data-parallel")
+        schedule = torch.as_tensor(schedule, dtype=torch.int64)
+        n, bsz = schedule.shape
+        if cache.get("data") is not data or cache.get("bsz") != bsz:
+            gb, bounds = staged_bounds(cfg, data, bsz)
+            cache.clear()
+            cache.update(data=data, bsz=bsz, grid_bits=gb, bounds=bounds)
+        step = cache.get("step")
+        if (step is None or step.state is not state
+                or step.generator is not generator
+                or step.rows.shape[0] < n
+                or step.addresses not in (None, step.held())):
+            cache["step"] = step = None  # its graph's memory goes first
+            step = _ScannedStep(cfg, state, data, n, bsz, generator,
+                                cache["grid_bits"], cache["bounds"])
+            if data.coords.is_cuda:
+                step.capture()
+            cache["step"] = step
+        out = step.run(schedule.to(data.coords.device))
+        state.step += n
+        state.opt_state["count"] = int(state.opt_state["count"]) + n
+        metrics = {k: out[:, j].float() for j, k in enumerate(step.keys)}
+        metrics["dropped_voxels"] = metrics["dropped_voxels"].long()
+        return state, generator, metrics
+
+    train_chunk.cache = cache  # "step": the _ScannedStep of the last chunk
+    return train_chunk
 
 
 def make_eval_step(cfg):

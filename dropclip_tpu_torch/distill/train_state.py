@@ -22,6 +22,11 @@ parameters:
 3. ``optax.add_decayed_weights(wd)``: ``+ wd * param``, before the rate;
 4. ``optax.scale_by_learning_rate(sgdr(count / iters_per_epoch))`` with
    the count before the increment (0 at the first step).
+
+``update`` computes the chain in tensor ops on the parameters' device,
+with the count as a tensor, the rate computed from it there and the
+moments updated in place, so that a CUDA graph that captured one step
+(the scanned trainer's) replays the next.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
-from ..core.schedule import cosine_annealing_warm_restarts
+from ..core.schedule import sgdr_tensor
 
 OptState = Dict[str, Any]
 
@@ -52,8 +57,10 @@ class AmsgradChain:
     # optax.scale_by_amsgrad's defaults, the recipe's
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, learning_rate: Callable[[int], float],
+    def __init__(self,
+                 learning_rate: Callable[[torch.Tensor], Any],
                  max_norm: float = 0.0, weight_decay: float = 0.0):
+        # the rate at an int64 count tensor: a float or a float32 tensor
         self.learning_rate = learning_rate
         self.max_norm = max_norm
         self.weight_decay = weight_decay
@@ -64,12 +71,10 @@ class AmsgradChain:
                  for n, p in model.named_parameters()}
         return {"count": 0, "moments": zeros}
 
-    @torch.no_grad()
-    def update(self, model: nn.Module, opt_state: OptState) -> torch.Tensor:
-        """One step from the parameters' ``.grad``; returns the global norm
-        of the gradients before clipping. Raises if a parameter has no
-        gradient: optax updates every leaf, so a missing one is a fault."""
-        named = list(model.named_parameters())
+    def _clipped(self, named):
+        """(gradients in float32, clipped by the global norm; the norm
+        before clipping). Raises if a parameter has no gradient: optax
+        updates every leaf, so a missing one is a fault."""
         missing = [n for n, p in named if p.grad is None]
         if missing:
             raise RuntimeError(f"no gradient reached {missing[:5]} "
@@ -80,23 +85,43 @@ class AmsgradChain:
             clip = ~(norm < self.max_norm)
             grads = [torch.where(clip, g / norm * self.max_norm, g)
                      for g in grads]
-        count = opt_state["count"]
-        lr = self.learning_rate(count)
-        b1, b2 = self.b1, self.b2
+        return grads, norm
+
+    @torch.no_grad()
+    def update(self, model: nn.Module, opt_state: OptState,
+               count: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One step from the parameters' ``.grad``; returns the global norm
+        of the gradients before clipping. The moments and parameters change
+        in place. ``count``: None, the state's count (an int) taken as a
+        tensor and advanced in ``opt_state``; or an int64 scalar tensor on
+        the parameters' device, advanced here in place (``opt_state``'s
+        count is left to the caller): then the step reads nothing back to
+        the host and makes no new state tensor, so a CUDA graph that
+        captured one call replays the next step."""
+        named = list(model.named_parameters())
+        grads, norm = self._clipped(named)
         dev = grads[0].device
-        c1 = 1 - torch.tensor(b1, device=dev) ** (count + 1)
-        c2 = 1 - torch.tensor(b2, device=dev) ** (count + 1)
+        step = count
+        if step is None:
+            step = torch.tensor(opt_state["count"], device=dev)
+        lr = self.learning_rate(step)
+        b1, b2 = self.b1, self.b2
+        n = (step + 1).float()
+        c1 = 1 - torch.pow(torch.full_like(n, b1), n)
+        c2 = 1 - torch.pow(torch.full_like(n, b2), n)
         for (name, p), g in zip(named, grads):
             st = opt_state["moments"][name]
-            mu = (1 - b1) * g + b1 * st["mu"]
-            nu = (1 - b2) * g ** 2 + b2 * st["nu"]
-            nu_max = torch.maximum(st["nu_max"], nu / c2)
-            u = (mu / c1) / (torch.sqrt(nu_max) + self.eps)
+            st["mu"].copy_((1 - b1) * g + b1 * st["mu"])
+            st["nu"].copy_((1 - b2) * g ** 2 + b2 * st["nu"])
+            st["nu_max"].copy_(torch.maximum(st["nu_max"], st["nu"] / c2))
+            u = (st["mu"] / c1) / (torch.sqrt(st["nu_max"]) + self.eps)
             if self.weight_decay > 0:
                 u = u + self.weight_decay * p.float()
             p.copy_(p.float() + u * (-lr))
-            st["mu"], st["nu"], st["nu_max"] = mu, nu, nu_max
-        opt_state["count"] = count + 1
+        if count is None:
+            opt_state["count"] += 1
+        else:
+            count.add_(1)
         return norm
 
 
@@ -106,12 +131,13 @@ def make_optimizer(cfg: Any, iters_per_epoch: int) -> AmsgradChain:
     base_lr = float(cfg.base_lr or 3e-4)
     min_lr = float(cfg.min_lr or 0.0)
     epochs = int(cfg.epochs or 200)
-    sgdr = cosine_annealing_warm_restarts(base_lr, eta_min=min_lr,
-                                          t_0=epochs)
+    sgdr = sgdr_tensor(base_lr, eta_min=min_lr, t_0=epochs)
     iters = max(iters_per_epoch, 1)
-    return AmsgradChain(lambda count: sgdr(count / iters),
-                        max_norm=float(cfg.max_norm or 0.0),
-                        weight_decay=float(cfg.weight_decay or 0.0))
+    return AmsgradChain(
+        # count / iters in float64, then rounded to float32
+        lambda count: sgdr((count.double() / iters).float()),
+        max_norm=float(cfg.max_norm or 0.0),
+        weight_decay=float(cfg.weight_decay or 0.0))
 
 
 @dataclass

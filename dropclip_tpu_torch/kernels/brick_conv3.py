@@ -5,27 +5,35 @@ source is ``csrc/brick_conv3.cu`` (design and bound in its header note);
 it is compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at
 first use and loaded with ``ctypes`` (``kernels/nvcc.py``).
 
-``brick_conv3`` is the wrapper: for CUDA tensors it launches the kernel
-(or raises), for CPU tensors it takes the plain version,
-``brick_conv3_plain`` (``sparse.bricks.brick_conv`` with ksize 3).
-``counter.launches`` counts kernel launches. ``instance`` picks the
-kernel's instance from (dtype, C, Cout); ``row_order`` is its row
-schedule (occupied rows sorted by their 27-bit tap mask, ``tap_masks``),
-torch ops on any device, which a caller may compute once per level and
-pass in.
+``brick_conv3`` is the wrapper. It checks its arguments and calls the
+registered op ``torch.ops.dropclip.brick_conv3`` (``torch.library``),
+whose CUDA implementation launches the kernel (or raises) and whose CPU
+implementation is the plain version, ``brick_conv3_plain``
+(``sparse.bricks.brick_conv`` with ksize 3); its fake implementation
+gives the output's shape and dtype, so ``torch.export`` records K1 as one
+opaque node. ``counter.launches`` counts kernel launches. ``instance``
+picks the kernel's instance from (dtype, C, Cout); ``row_order`` is its
+row schedule (occupied rows sorted by their 27-bit tap mask,
+``tap_masks``), torch ops on any device, which a caller may compute once
+per level and pass in.
 
 ``BrickConv3Fn`` makes the conv differentiable for the trainer: the
 input gradient is itself a k3 submanifold conv on the same level (tap k
 reads weight 26-k transposed), so K1 computes it too; the weight gradient
 is a gathered product over the occupied rows (``brick_conv3_wgrad``,
-torch matmuls, as the JAX package leaves it to XLA).
+torch matmuls, as the JAX package leaves it to XLA). Its rows are the
+schedule's first ``n_occ``, a count it reads back to the host, unless the
+schedule carries a static bound (``Schedule.wgrad_rows``): the schedule
+puts the occupied rows first and ``dY`` is zero on every other row, so
+any bound at or above ``n_occ`` gives the same sum, and a captured CUDA
+graph can hold it.
 """
 
 from __future__ import annotations
 
 import ctypes
 from types import SimpleNamespace
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -41,6 +49,17 @@ KINDS = {"tf32x3": 0, "tf32x3_ragged": 1, "bf16": 2, "bf16_ragged": 3}
 # lives here, not on the function, so a caller that wraps or swaps
 # ``brick_conv3`` leaves it in place
 counter = SimpleNamespace(launches=0)
+
+
+class Schedule(NamedTuple):
+    """``row_order``'s three tensors, and optionally a static bound on the
+    occupied rows that the weight gradient sums over (at least
+    ``n_occ``; None reads ``n_occ`` back to the host)."""
+
+    order: torch.Tensor
+    n_occ: torch.Tensor
+    masks: torch.Tensor
+    wgrad_rows: Optional[int] = None
 
 
 def instance(dtype: torch.dtype, c: int, cout: int,
@@ -177,35 +196,59 @@ def _check(feats, nbr, weights, occ) -> Tuple[int, int, int, int, int, int]:
 
 def brick_conv3(feats: torch.Tensor, nbr: torch.Tensor,
                 weights: torch.Tensor, occ: torch.Tensor,
-                schedule: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]] = None
+                schedule: Optional[Tuple[torch.Tensor, ...]] = None
                 ) -> torch.Tensor:
     """k3 submanifold brick conv: (Bm, bx,by,bz, C) -> (Bm, bx,by,bz, Cout),
     masked to ``occ``. nbr (Bm, 27) int32 (miss: any row outside [0, Bm)),
     weights (27, C, Cout) in the feats dtype. CUDA tensors run K1, CPU
-    tensors the plain version.
+    tensors the plain version, both through the registered op.
 
-    ``schedule``: ``row_order(occ, nbr)`` of this very level, which a
-    caller may compute once and share between convs. Contract, which the
-    wrapper cannot check without a host sync: ``feats`` is zero at every
-    voxel outside ``occ`` (the brick student's convs keep it, since every
-    input is masked to ``occ``), because K1 reads no source outside
-    ``occ`` and a schedule of another level gives wrong sums; only the
-    shapes, dtypes and device are checked. Without a schedule the wrapper
-    orders the rows itself and takes a source as live where its features
-    are not all zero, which holds for any input."""
+    ``schedule``: ``row_order(occ, nbr)`` of this very level (or a
+    ``Schedule``), which a caller may compute once and share between
+    convs. Contract, which the wrapper cannot check without a host sync:
+    ``feats`` is zero at every voxel outside ``occ`` (the brick student's
+    convs keep it, since every input is masked to ``occ``), because K1
+    reads no source outside ``occ`` and a schedule of another level gives
+    wrong sums; only the shapes, dtypes and device are checked. Without a
+    schedule the wrapper orders the rows itself and takes a source as
+    live where its features are not all zero, which holds for any
+    input."""
     if not feats.is_cuda:
-        return brick_conv3_plain(feats, nbr, weights, occ)
+        return torch.ops.dropclip.brick_conv3(feats, nbr, weights, occ,
+                                              None, None, None)
+    bm, bx, by, bz, _, _ = _check(feats, nbr, weights, occ)
+    if schedule is None:
+        # a source whose features are all zero adds nothing to any sum
+        schedule = row_order(occ, nbr, feats.any(-1))
+    rows = bm * bx * by * bz
+    order, n_occ, masks = schedule[:3]
+    if (order.shape != (rows,) or masks.shape != (rows,)
+            or n_occ.numel() != 1 or any(
+                t.dtype != torch.int32 or t.device != feats.device
+                for t in (order, n_occ, masks))):
+        raise ValueError("schedule must be row_order(occ, nbr) of this "
+                         "level")
+    return torch.ops.dropclip.brick_conv3(feats, nbr, weights, occ, order,
+                                          n_occ, masks)
+
+
+@torch.library.custom_op("dropclip::brick_conv3", mutates_args=(),
+                         device_types="cpu")
+def brick_conv3_op(feats: torch.Tensor, nbr: torch.Tensor,
+                   weights: torch.Tensor, occ: torch.Tensor,
+                   order: Optional[torch.Tensor],
+                   n_occ: Optional[torch.Tensor],
+                   masks: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1 as a registered op; the schedule's three tensors may be None.
+    This implementation serves CPU tensors: the plain version."""
+    return brick_conv3_plain(feats, nbr, weights, occ)
+
+
+@brick_conv3_op.register_kernel("cuda")
+def _brick_conv3_cuda(feats, nbr, weights, occ, order, n_occ, masks):
+    """Launches K1 on the current stream (a captured CUDA graph records
+    it) and counts the launch; raises if it cannot."""
     bm, bx, by, bz, c, cout = _check(feats, nbr, weights, occ)
-    if schedule is not None:
-        rows = bm * bx * by * bz
-        order, n_occ, masks = schedule
-        if (order.shape != (rows,) or masks.shape != (rows,)
-                or n_occ.numel() != 1 or any(
-                    t.dtype != torch.int32 or t.device != feats.device
-                    for t in schedule)):
-            raise ValueError("schedule must be row_order(occ, nbr) of this "
-                             "level")
     out = torch.empty((bm, bx, by, bz, cout), dtype=feats.dtype,
                       device=feats.device)
     if bm == 0 or cout == 0:
@@ -214,10 +257,8 @@ def brick_conv3(feats: torch.Tensor, nbr: torch.Tensor,
         return out.zero_()
     lib = LIB.load()
     with torch.cuda.device(feats.device):
-        if schedule is None:
-            # a source whose features are all zero adds nothing to any sum
-            schedule = row_order(occ, nbr, feats.any(-1))
-        order, n_occ, masks = schedule
+        if order is None or n_occ is None or masks is None:
+            order, n_occ, masks = row_order(occ, nbr, feats.any(-1))
         aligned = feats.data_ptr() % 16 == 0 and \
             weights.data_ptr() % 16 == 0
         kind = KINDS[instance(feats.dtype, c, cout, aligned)]
@@ -229,6 +270,11 @@ def brick_conv3(feats: torch.Tensor, nbr: torch.Tensor,
     LIB.check(err, "brick_conv3")
     counter.launches += 1
     return out
+
+
+@brick_conv3_op.register_fake
+def _brick_conv3_fake(feats, nbr, weights, occ, order, n_occ, masks):
+    return feats.new_empty(tuple(feats.shape[:-1]) + (weights.shape[-1],))
 
 
 def tap_sources(nbr: torch.Tensor, bshape: Tuple[int, int, int],
@@ -252,21 +298,25 @@ _WGRAD_CHUNK_BYTES = 1 << 29
 
 def brick_conv3_wgrad(feats: torch.Tensor, grad_out: torch.Tensor,
                       nbr: torch.Tensor, occ: torch.Tensor,
-                      schedule: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                               torch.Tensor]] = None
-                      ) -> torch.Tensor:
+                      schedule: Optional[Tuple[torch.Tensor, ...]] = None,
+                      n_rows: Optional[int] = None) -> torch.Tensor:
     """Weight gradient of the k3 conv, float32 (27, C, Cout):
     dW[t] = sum over occupied rows i of X[src_t(i)]^T . dY[i], where
     ``grad_out`` is zero off ``occ``. The occupied rows are the
     schedule's first ``n_occ`` entries, or ``occ``'s nonzeros; either
-    reads a count back to the host. The gathered sources go a few taps
-    at a time (at most ``_WGRAD_CHUNK_BYTES``), never all 27 unfolded:
-    at level 0 of the full student that would be 327,680 x 27 x 416 x 4
-    bytes = 14.7 GB."""
+    reads a count back to the host. With a schedule, a static ``n_rows``
+    at or above ``n_occ`` takes the schedule's first ``n_rows`` entries
+    instead and reads nothing back: the rows past ``n_occ`` are empty,
+    where ``grad_out`` is zero, so they add exact zeros (the sum is the
+    same up to the product's order of summation). The gathered sources go
+    a few taps at a time (at most ``_WGRAD_CHUNK_BYTES``), never all 27
+    unfolded: at level 0 of the full student that would be 327,680 x 27 x
+    416 x 4 bytes = 14.7 GB."""
     bm, bx, by, bz, c = feats.shape
     cout = grad_out.shape[-1]
     if schedule is not None:
-        rows = schedule[0][: int(schedule[1])].long()
+        n = int(schedule[1]) if n_rows is None else n_rows
+        rows = schedule[0][:n].long()
     else:
         rows = occ.reshape(-1).nonzero()[:, 0]
     n = rows.numel()
@@ -296,12 +346,14 @@ class BrickConv3Fn(torch.autograd.Function):
       a CPU tensor);
     - input gradient (dgrad): ``brick_conv3`` of ``dY * occ`` with the
       weights ``w.flip(0).transpose(1, 2)``, on the same ``nbr``, ``occ``
-      and schedule: in ``_NBR_OFFSETS``' lexicographic order offset 26-k
-      is -offset k, so dX[j] = sum_k dY[j + o_k] . W[26-k]^T. The schedule
+      and schedule: in the lexicographic offset order
+      (``bricks._offsets``) offset 26-k is -offset k, so
+      dX[j] = sum_k dY[j + o_k] . W[26-k]^T. The schedule
       stays valid because ``dY * occ`` is zero off ``occ``, as the
       forward's input is. K1 on the card: no other kernel, no fallback;
     - weight gradient (wgrad): ``brick_conv3_wgrad`` over the occupied
-      rows, cast to the weights' dtype.
+      rows (the schedule's static ``wgrad_rows`` where a ``Schedule``
+      carries one), cast to the weights' dtype.
 
     dX is exact on occupied voxels and zero elsewhere, since K1 masks its
     output to ``occ``; the true gradient is also nonzero at empty voxels
@@ -329,6 +381,7 @@ class BrickConv3Fn(torch.autograd.Function):
             dx = brick_conv3(dy, nbr, mirror_taps(weights), occ,
                              ctx.schedule)
         if ctx.needs_input_grad[1]:
-            dw = brick_conv3_wgrad(feats, dy, nbr, occ,
-                                   ctx.schedule).to(weights.dtype)
+            dw = brick_conv3_wgrad(
+                feats, dy, nbr, occ, ctx.schedule,
+                getattr(ctx.schedule, "wgrad_rows", None)).to(weights.dtype)
         return dx, dw, None, None, None

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.device import env_flag
+from ..core.platform import env_flag
 
 LOG2E = 1.4426950408889634
 _VMEM_BUDGET = 25 * 1024 * 1024

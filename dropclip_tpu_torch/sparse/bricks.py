@@ -29,14 +29,6 @@ import torch
 
 DEFAULT_BRICK_SHAPE = (4, 4, 4)
 
-# lexicographic (dx, dy, dz) in {-1,0,1}^3 — the weight order of every
-# k3 kernel, (K, Cin, Cout)
-_NBR_OFFSETS = np.array(
-    [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
-     for dz in (-1, 0, 1)], np.int32)
-_OFFS8 = np.array([(i, j, k) for i in (0, 1) for j in (0, 1)
-                   for k in (0, 1)], np.int32)
-
 
 def _shifts(bshape: Tuple[int, int, int]) -> Tuple[int, int, int]:
     for s in bshape:
@@ -66,6 +58,10 @@ class BrickTopology(NamedTuple):
     parent_maps: Tuple[torch.Tensor, ...]  # (..., Bm_l) coarse row per fine
     octants: Tuple[torch.Tensor, ...]      # (..., Bm_l, 3) fine brick & 1
     dropped: Optional[torch.Tensor] = None  # (..., L) truncated units
+    # per level, a static bound on the occupied voxel rows (set by a
+    # scanned trainer from its staged data), which the k3 convs' weight
+    # gradients take instead of reading the count back to the host
+    wgrad_rows: Optional[Tuple[int, ...]] = None
 
 
 class _GridLevel(NamedTuple):
@@ -118,15 +114,13 @@ def _grid_level(cells: torch.Tensor, capacity: int,
     cx = brick_cell // (gy * gz)
     cy = (brick_cell // gz) % gy
     cz = brick_cell % gz
-    bias_t = torch.tensor(bias, device=dev)
-    coords = torch.stack([cx, cy, cz], -1) - bias_t
+    coords = torch.stack([cx - bias[0], cy - bias[1], cz - bias[2]], -1)
     coords = torch.where(bmask[..., None], coords, 0)
 
-    offs = torch.as_tensor(_NBR_OFFSETS, device=dev).long()
-    nbc = coords[:, :, None, :] + bias_t + offs[None, None]
-    ok = ((nbc >= 0).all(-1)
-          & (nbc < torch.tensor(gdims, device=dev)).all(-1)
-          & bmask[..., None])
+    offs = _offsets(3, dev) - 1
+    nbc = (torch.stack([coords[..., a] + bias[a] for a in range(3)], -1)
+           [:, :, None, :] + offs[None, None])
+    ok = _in_grid(nbc, gdims) & bmask[..., None]
     ncell = (nbc[..., 0] * gy + nbc[..., 1]) * gz + nbc[..., 2]
     ncell = torch.where(ok, ncell, n_cells)
     nbr = _rows_of(table, ncell.reshape(b, -1), n_cells).reshape(
@@ -140,13 +134,33 @@ def _grid_level(cells: torch.Tensor, capacity: int,
     return _GridLevel(level=lvl, table=table, gdims=gdims, bias=bias)
 
 
+def _offsets(n: int, device: torch.device) -> torch.Tensor:
+    """(n**3, 3) int64 offsets in {0..n-1}^3, lexicographic (the last axis
+    fastest), made on ``device`` by device ops: a copy to the card is not
+    allowed in the middle of a captured CUDA graph. ``_offsets(3) - 1``,
+    (dx, dy, dz) in {-1, 0, 1}^3, is the weight order of every k3 kernel,
+    (K, Cin, Cout); ``_offsets(2)`` that of the k2s2 convs."""
+    r = torch.arange(n, device=device)
+    return torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                       -1).reshape(-1, 3)
+
+
+def _in_grid(c: torch.Tensor, gdims: Tuple[int, int, int]) -> torch.Tensor:
+    """(..., 3) grid coords -> (...) bool: inside [0, gdims) on every
+    axis."""
+    ok = (c >= 0).all(-1)
+    for a in range(3):
+        ok = ok & (c[..., a] < gdims[a])
+    return ok
+
+
 def _cells_of(bcoords: torch.Tensor, valid: torch.Tensor,
               gdims: Tuple[int, int, int],
               bias: Tuple[int, int, int]) -> torch.Tensor:
     gx, gy, gz = gdims
-    bc = bcoords.long() + torch.tensor(bias, device=bcoords.device)
-    ok = (valid & (bc >= 0).all(-1)
-          & (bc < torch.tensor(gdims, device=bcoords.device)).all(-1))
+    bc = torch.stack([bcoords[..., a].long() + bias[a] for a in range(3)],
+                     -1)
+    ok = valid & _in_grid(bc, gdims)
     cell = (bc[..., 0] * gy + bc[..., 1]) * gz + bc[..., 2]
     return torch.where(ok, cell, gx * gy * gz)
 
@@ -164,7 +178,7 @@ def _build_batched(coords: torch.Tensor, mask: torch.Tensor,
     # the VOXEL extent is 2^(grid_bits+2) on every axis whatever the brick
     # shape: an axis with smaller bricks gets proportionally more of them
     g0dims = tuple(((1 << grid_bits) * 4) // s for s in bshape)
-    offs8 = torch.as_tensor(_OFFS8, device=dev).long()
+    offs8 = _offsets(2, dev)
 
     levels, grids = [], []
     group_maps, parent_maps, octants, dropped = [], [], [], []
@@ -310,7 +324,8 @@ def fold_topology(topo: BrickTopology) -> BrickTopology:
         parent_maps=tuple(gidx(p, caps[l + 1])
                           for l, p in enumerate(topo.parent_maps)),
         octants=tuple(fold(o) for o in topo.octants),
-        dropped=topo.dropped)
+        dropped=topo.dropped,
+        wgrad_rows=topo.wgrad_rows)
 
 
 def autotune_brick_capacities(coords, mask, num_levels: int = 5,

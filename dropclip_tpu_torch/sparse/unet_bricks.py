@@ -33,14 +33,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.brick_conv3 import BrickConv3Fn, row_order
+from ..kernels.brick_conv3 import BrickConv3Fn, Schedule, row_order
 from .bricks import (BrickLevel, BrickTopology, brick_conv, brick_down_conv,
                      brick_up_conv, fold_topology, gather_points,
                      scatter_points)
 from .unet import (ConvKernel, MaskedBatchNorm, arch_of,
                    reset_student_parameters, stage_dropout)
-
-Schedule = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class BConv(ConvKernel):
@@ -62,7 +60,9 @@ def level_schedule(level: BrickLevel) -> Optional[Schedule]:
     """K1's row schedule of a level on the card (``row_order``), shared by
     every k3 conv of the level: each of their inputs vanishes off ``occ``,
     as ``brick_conv3``'s contract asks. None on the CPU."""
-    return row_order(level.occ, level.nbr) if level.occ.is_cuda else None
+    if not level.occ.is_cuda:
+        return None
+    return Schedule(*row_order(level.occ, level.nbr))
 
 
 class BConvDown(ConvKernel):
@@ -169,12 +169,18 @@ def rematerialized(module: nn.Module, *args: Any) -> Any:
         finally:
             _set_stats_update(module, True)
 
-    return checkpoint(run, *args, use_reentrant=False)
+    # nothing rematerialised draws random numbers (dropout follows a
+    # stage, outside), so no RNG state is stashed: a CUDA graph capture
+    # cannot read the generator's state
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class MinkUNetBricks(nn.Module):
     """forward(topo: BrickTopology (batched), x (B, M, Cin)) ->
-    (B, M, out_channels) per-voxel features [+ logits if use_cls_head]."""
+    (B, M, out_channels) per-voxel features [+ logits if use_cls_head].
+    The k3 convs' weight gradients take the topology's ``wgrad_rows``
+    where it is set."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  block: str = "basic", layers: Sequence[int] = (1,) * 8,
@@ -239,6 +245,9 @@ class MinkUNetBricks(nn.Module):
         topo = fold_topology(topo)
         lv = topo.levels
         sched = [level_schedule(level) for level in lv]
+        if topo.wgrad_rows is not None:  # static bounds for the wgrads
+            sched = [s if s is None else s._replace(wgrad_rows=n)
+                     for s, n in zip(sched, topo.wgrad_rows)]
         dense = scatter_points(x.reshape(bsz * m, -1), topo.point_row,
                                topo.point_within, bsz * cap0, bshape0)
 

@@ -32,8 +32,13 @@ segmentation, with ``cls_list_path``) and grounding eval (``eval_task``
 all or grounding, whose DistilLoss picks the best checkpoint); otherwise
 the distil loss alone. ``visualize`` dumps one val scene per eval epoch.
 
-Not ported yet, each raising with its ROADMAP item: ``scan_epochs > 0``
-and ``profile_dir``.
+``scan_epochs N`` trains in chunks of N epochs through
+``distill.engine.make_scanned_train`` (one step captured as a CUDA graph
+on the card, replayed for every step of a chunk) on the whole padded
+dataset staged once on the device, with validation and checkpoints after
+each chunk (one process, one device). ``profile_dir`` traces steps 10-14
+of the first epoch with ``torch.profiler`` into that directory and logs
+the per-op table (``core.xplane``).
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ from ..core.meters import AverageMeter, ProgressMeter
 from ..data import build_dataset_for
 from ..data.loader import DataLoader
 from ..distill.engine import (DistilBatch, brick_shape_of, build_student_for,
-                              make_eval_step, make_train_step)
+                              make_eval_step, make_scanned_train,
+                              make_train_step)
 from ..distill.evaluate import mean_over_ranks
 from ..distill.train_state import create_train_state, make_optimizer
 from ..pipeline import make_clip_sim
@@ -78,20 +84,6 @@ def get_parser(argv=None):
     if a.opts:
         cfg = merge_cfg_from_list(cfg, a.opts)
     return cfg, resolve_device(a.device)
-
-
-def _refuse_unported(cfg) -> None:
-    todo = [
-        (int(cfg.scan_epochs or 0) > 0, "scan_epochs",
-         "make_scanned_train as a CUDA graph"),
-        (bool(cfg.profile_dir), "profile_dir", "profile_dir on "
-         "torch.profiler"),
-    ]
-    for on, what, item in todo:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet: it waits for its ROADMAP queue 1 "
-                f"item, {item}")
 
 
 def to_batch(b: Dict, device: torch.device) -> DistilBatch:
@@ -214,6 +206,126 @@ def validate(cfg, val_loader, eval_forward, clip_sim, epoch: int, logger,
     return val_loss
 
 
+# the scanned trainer stages the whole padded dataset on the device
+STAGE_LIMIT = 4 << 30
+
+
+def stage_dataset(train_ds, collate, device: torch.device, start_epoch: int,
+                  logger) -> DistilBatch:
+    """Every training scene, padded and collated once (the augmentation
+    and view draws of ``start_epoch``) and put on ``device`` as one batch
+    with a scene axis; refused above ``STAGE_LIMIT`` bytes."""
+    if hasattr(train_ds, "set_epoch"):
+        train_ds.set_epoch(start_epoch)
+    n = len(train_ds)
+    logger.info("scan_epochs: staging %d scenes", n)
+    staged = collate([train_ds[i] for i in range(n)])
+    nbytes = sum(np.asarray(staged[k]).nbytes for k in (
+        "coords", "mask", "in_feats", "targets", "labels"))
+    if nbytes > STAGE_LIMIT:
+        raise ValueError(f"scan_epochs: the staged dataset is "
+                         f"{nbytes / 2**30:.1f} GiB, too large to hold on the "
+                         "device; train with the per-step loop")
+    return to_batch(staged, device)
+
+
+def epoch_rows(loader: DataLoader, epoch: int) -> np.ndarray:
+    """(steps, batch) dataset indices of ``loader``'s batches at
+    ``epoch`` (its shuffle, its dropped last batch)."""
+    loader.set_epoch(epoch)
+    return np.stack(loader.batch_indices()).astype(np.int64)
+
+
+def _run_scanned(cfg, state, train_loader, collate, device, logger,
+                 save_dir, generator, start_epoch, best_val, run_validation,
+                 wandb_run) -> None:
+    """``scan_epochs``: the per-step loop's semantics (the loader's
+    batches per epoch, the same optimizer steps) in chunks of
+    ``scan_epochs`` epochs over the dataset staged once, as the JAX
+    package's ``_run_scanned``; validation and the last and best
+    checkpoints after each chunk."""
+    if process_count() > 1:
+        raise RuntimeError("scan_epochs runs one process on one device "
+                           "(the staged data is one process's); train "
+                           "data-parallel with the per-step loop")
+    if cfg.use_augmentation:
+        logger.warning("scan_epochs with use_augmentation: augmentation "
+                       "draws are FROZEN at epoch %d (pre-staged data); "
+                       "use the per-step loop for fresh per-epoch draws",
+                       start_epoch)
+    if len(train_loader) == 0:
+        raise ValueError(f"scan_epochs: batch_size {cfg.batch_size} > "
+                         f"dataset {len(train_loader.dataset)}")
+    data = stage_dataset(train_loader.dataset, collate, device, start_epoch,
+                         logger)
+    chunk_fn = make_scanned_train(cfg)
+    epochs = int(cfg.epochs or 200)
+    scan_n = int(cfg.scan_epochs)
+    for c0 in range(start_epoch, epochs, scan_n):
+        c1 = min(c0 + scan_n, epochs)
+        rows = np.concatenate([epoch_rows(train_loader, e)
+                               for e in range(c0, c1)])
+        t0 = time.time()
+        state, generator, mstack = chunk_fn(state, data, rows, generator)
+        loss_tail = float(mstack["distil_loss"][-1])
+        dropped = int(mstack["dropped_voxels"].sum())
+        logger.info("scan epochs [%d..%d): %d steps, distil_loss %.4f "
+                    "(%.1fs)", c0, c1, len(rows), loss_tail,
+                    time.time() - t0)
+        if dropped:
+            logger.warning("chunk [%d..%d): %d voxels/bricks dropped by "
+                           "capacity overflow or grid extent: raise "
+                           "brick_capacities", c0, c1, dropped)
+        if wandb_run is not None:
+            wandb_run.log({"train/distil_loss": loss_tail,
+                           "train/step": state.step})
+        val_loss = run_validation(c1 - 1, loss_tail)
+        is_best = val_loss < best_val
+        best_val = min(val_loss, best_val)
+        save_checkpoint(save_dir, {
+            "step": state.step, "model": state.model.state_dict(),
+            "opt_state": state.opt_state, "epoch": c1 - 1,
+            "best_val": best_val}, best=is_best)
+        logger.info("saved checkpoint (epoch %d, best=%s)", c1 - 1, is_best)
+
+
+class StepProfile:
+    """``profile_dir``: ``torch.profiler`` over steps 10-14 of the first
+    epoch (or to that epoch's end), its Chrome trace written into
+    ``profile_dir`` and its per-op table logged (``core.xplane``)."""
+
+    FIRST, LAST = 10, 14
+
+    def __init__(self, profile_dir: Optional[str], device: torch.device):
+        self.dir, self.device, self.prof = profile_dir, device, None
+
+    def before(self, i: int) -> None:
+        if self.dir and i == self.FIRST and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.start()
+
+    def after(self, i: int, logger, last: bool = False) -> None:
+        if self.prof is None or self.dir is None or not (
+                i == self.LAST or last):
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"trace.rank-{process_index()}.json")
+        self.prof.export_chrome_trace(path)
+        from ..core.xplane import format_profile
+
+        logger.info("profiler trace of steps %d-%d -> %s\n%s", self.FIRST,
+                    i, path, format_profile(path))
+        self.dir = None  # once
+
+
 def _wandb(cfg, stamp, logger):
     """A wandb run on rank 0 when ``use_wandb`` is set and wandb is
     installed."""
@@ -234,7 +346,6 @@ def _wandb(cfg, stamp, logger):
 def main(argv=None) -> Optional[str]:
     """Train; returns the directory the checkpoints went to."""
     cfg, device = get_parser(argv)
-    _refuse_unported(cfg)
     formed = maybe_initialize_distributed(cfg, device)
     try:
         return _train(cfg, local_device(device))
@@ -317,6 +428,27 @@ def _train(cfg, device: torch.device) -> str:
 
     dropout_gen = torch.Generator(device=device).manual_seed(seed + 1 + rank)
 
+    def run_validation(epoch: int, fallback: float) -> float:
+        """Validation after ``epoch`` (with its visualization), or
+        ``fallback`` without a val set."""
+        if val_loader is None:
+            return fallback
+        val_loss = validate(cfg, val_loader, eval_forward, clip_sim, epoch,
+                            logger, fallback, wandb_run)
+        if cfg.visualize:
+            vdir = dump_visualization(val_ds, collate, eval_forward, epoch,
+                                      save_dir, cfg, bsz_val // world)
+            logger.info("visualization -> %s", vdir)
+        return val_loss
+
+    if int(cfg.scan_epochs or 0) > 0:
+        _run_scanned(cfg, state, train_loader, collate, device, logger,
+                     save_dir, dropout_gen, start_epoch, best_val,
+                     run_validation, wandb_run)
+        logger.info("done (scanned); checkpoints in %s", save_dir)
+        return save_dir
+
+    profiler = StepProfile(cfg.profile_dir, device)
     for epoch in range(start_epoch, int(cfg.epochs or 200)):
         train_loader.set_epoch(epoch)
         bt = AverageMeter("Batch", ":.3f")
@@ -329,6 +461,8 @@ def _train(cfg, device: torch.device) -> str:
         end = time.time()
         for i, b in enumerate(train_loader):
             dt.update(time.time() - end)
+            if epoch == start_epoch:
+                profiler.before(i)
             state, metrics = train_step(state, to_batch(b, device),
                                         dropout_gen)
             # reading the metrics syncs the card (keeps the meters honest)
@@ -337,6 +471,7 @@ def _train(cfg, device: torch.device) -> str:
             epoch_dropped += int(metrics["dropped_voxels"])
             bt.update(time.time() - end)
             end = time.time()
+            profiler.after(i, logger, last=i == iters_per_epoch - 1)
             if i % int(cfg.print_freq or 25) == 0:
                 prog.display(i, print_fn=logger.info)
                 if wandb_run is not None:
@@ -353,14 +488,8 @@ def _train(cfg, device: torch.device) -> str:
                 wandb_run.log({"train/dropped_voxels": epoch_dropped})
 
         val_loss = lm.avg
-        if val_loader is not None and epoch % int(cfg.eval_freq or 1) == 0:
-            val_loss = validate(cfg, val_loader, eval_forward, clip_sim,
-                                epoch, logger, lm.avg, wandb_run)
-            if cfg.visualize:
-                vdir = dump_visualization(
-                    val_ds, collate, eval_forward, epoch, save_dir, cfg,
-                    bsz_val // world)
-                logger.info("visualization -> %s", vdir)
+        if epoch % int(cfg.eval_freq or 1) == 0:
+            val_loss = run_validation(epoch, lm.avg)
 
         if epoch % int(cfg.save_freq or 1) == 0:
             # val_loss is the ranks' mean: is_best agrees on every rank

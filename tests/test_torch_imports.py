@@ -161,7 +161,8 @@ def test_no_forbidden_imports_in_sources():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "attention_timing.py", "brick_conv_timing.py",
         "brick_conv_variants.py", "pillar_conv_timing.py",
-        "layernorm_timing.py", "train_grad_readings.py")]
+        "layernorm_timing.py", "train_grad_readings.py",
+        "scan_readings.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "dropclip_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     for path in files:

@@ -1110,3 +1110,206 @@ def test_nearest_neighbor_device_card_matches_cpu(cuda):
     assert got.device.type == "cuda" and got.dtype == torch.int32
     assert torch.equal(got.cpu(), ref)
     assert torch.equal(ref.long(), torch.from_numpy(pick))
+
+
+# ---- the tooling slice: K1 as a registered op, in a CUDA graph, and its
+# weight gradient with a static row bound
+
+def _k1_case(cuda, level=1, c=64, cout=96, seed=7):
+    lv = _folded_level((4, 4, 2), level=level)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(tuple(lv.occ.shape) + (c,), generator=gen,
+                    device=cuda) * lv.occ[..., None]
+    w = torch.randn((27, c, cout), generator=gen, device=cuda) * 0.05
+    return lv, x, w
+
+
+def test_k1_registered_op_equals_the_direct_call(cuda):
+    """``torch.ops.dropclip.brick_conv3`` with the level's schedule gives
+    exactly the wrapper's result (the same launch), counts one launch,
+    and its fake implementation gives the output's shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    lv, x, w = _k1_case(cuda)
+    sched = row_order(lv.occ, lv.nbr)
+    want = brick_conv3(x, lv.nbr, w, lv.occ, sched)
+    before = k1_count.launches
+    got = torch.ops.dropclip.brick_conv3(x, lv.nbr, w, lv.occ, *sched)
+    assert k1_count.launches - before == 1
+    assert torch.equal(got, want)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.dropclip.brick_conv3(
+            *(mode.from_tensor(t) for t in (x, lv.nbr, w, lv.occ)),
+            None, None, None)
+    assert fake.shape == want.shape and fake.dtype == want.dtype
+
+
+def test_k1_and_its_dgrad_in_a_cuda_graph_equal_eager(cuda):
+    """K1's forward and its dgrad (``BrickConv3Fn``'s backward, K1 with
+    mirrored taps) captured in one CUDA graph and replayed on new inputs
+    copied into the captured buffers: the same results as eager calls
+    (exactly: the same launches on the same data), and the capture counts
+    its two launches while a replay counts none."""
+    from dropclip_tpu_torch.kernels.brick_conv3 import (BrickConv3Fn,
+                                                        Schedule)
+
+    lv, x, w = _k1_case(cuda)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dy = torch.randn(tuple(lv.occ.shape) + (w.shape[2],), generator=gen,
+                     device=cuda)
+    sched = Schedule(*row_order(lv.occ, lv.nbr))
+
+    def step(xs):
+        xs = xs.detach().requires_grad_(True)
+        out = BrickConv3Fn.apply(xs, w, lv.nbr, lv.occ, sched)
+        (out * dy).sum().backward()
+        return out.detach(), xs.grad
+
+    static_x = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(static_x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = k1_count.launches
+    with torch.cuda.graph(graph):
+        g_out, g_dx = step(static_x)
+    assert k1_count.launches - before == 2
+    for seed in (9, 10):
+        new = torch.randn(x.shape, generator=gen.manual_seed(seed),
+                          device=cuda) * lv.occ[..., None]
+        static_x.copy_(new)
+        before = k1_count.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert k1_count.launches == before
+        out, dx = step(new)
+        assert torch.equal(g_out, out) and torch.equal(g_dx, dx)
+
+
+@pytest.mark.parametrize("level,c,cout", [(0, 32, 32), (2, 128, 256)])
+def test_k1_wgrad_static_bound_equals_count_read(cuda, level, c, cout):
+    """The weight gradient over the schedule's first ``n_rows`` rows, a
+    bound at or above the occupied count (the count itself, plus 1000,
+    every row), against the count-read weight gradient: 1e-5 of
+    max|ref| (the rows past the count add exact zeros; only the
+    product's order of summation moves)."""
+    from dropclip_tpu_torch.kernels.brick_conv3 import brick_conv3_wgrad
+
+    lv, x, _ = _k1_case(cuda, level=level, c=c, cout=cout)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dy = torch.randn(tuple(lv.occ.shape) + (cout,), generator=gen,
+                     device=cuda) * lv.occ[..., None]
+    sched = row_order(lv.occ, lv.nbr)
+    ref = brick_conv3_wgrad(x, dy, lv.nbr, lv.occ, sched)
+    n_occ, rows = int(sched[1]), sched[0].numel()
+    assert float(ref.abs().max()) > 0
+    for n in (n_occ, min(n_occ + 1000, rows), rows):
+        got = brick_conv3_wgrad(x, dy, lv.nbr, lv.occ, sched, n_rows=n)
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+# the parameters' update gap of the scanned trainer against the eager
+# loop from one warm state: on an H100 the sound runs read 2.3e-6 to
+# 3.0e-6 and a frozen step count 0.27 to 0.28 (PERF.md)
+SCAN_GAP = 1e-3
+
+
+def _scanned_against_eager(cuda, remat, dropout):
+    """A small student (MinkUNet14A, 32-d) on six staged scenes, three
+    eager steps to a warm state, then six steps from copies of it: the
+    eager step loop, and ``make_scanned_train`` in two chunks of three
+    (one step captured as a CUDA graph, replayed), dropout drawn from
+    generators seeded alike. Returns (graph losses, eager losses, the
+    parameters' update gap ||graph - eager|| / ||eager - warm|| over
+    every parameter, the chunk function)."""
+    import copy
+
+    from dropclip_tpu_torch.core.config import CfgNode
+    from dropclip_tpu_torch.distill import engine
+    from dropclip_tpu_torch.distill.train_state import (create_train_state,
+                                                        make_optimizer)
+
+    rng = np.random.RandomState(0)
+    s, m, f = 6, 512, 32
+    coords, mask = make_tabletop_coords(rng, s, m, n_occ=400, ext=12)
+    caps = bricks.autotune_brick_capacities(coords, mask, slack=1.5,
+                                            brick_shape=(4, 4, 2))
+    cfg = CfgNode(dict(arch_3d="MinkUNet14A", feat_dim=f, use_color=True,
+                       sparse_backend="bricks", brick_shape=[4, 4, 2],
+                       brick_capacities=list(caps), remat=remat,
+                       dropout_rate=dropout, base_lr=3e-4, min_lr=1e-4,
+                       epochs=4,
+                       weight_decay=1e-5, max_norm=5.0, loss_type="cosine"))
+    put = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    data = engine.DistilBatch(
+        put(coords), put(mask),
+        put((rng.randn(s, m, 6) * mask[..., None]).astype(np.float32)),
+        put((rng.randn(s, m, f) * mask[..., None]).astype(np.float32)),
+        put(np.zeros((s, m), np.int32)), put(np.zeros((s, m), np.int32)))
+    rows = np.array([[0, 1], [2, 3], [4, 5], [1, 4], [3, 0], [5, 2]])
+    net = engine.build_student_for(
+        cfg, generator=torch.Generator().manual_seed(1)).to(cuda)
+    step = engine.make_train_step(cfg)
+
+    def batch(r):
+        return engine.DistilBatch(*(t[put(r)] for t in data))
+
+    warm = create_train_state(net, make_optimizer(cfg, 3))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for r in ([1, 2], [3, 4], [5, 0]):
+        step(warm, batch(r), gen)
+    init = {k: v.clone() for k, v in warm.model.named_parameters()}
+    eager = copy.deepcopy(warm)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    want = [float(step(eager, batch(r), gen)[1]["distil_loss"])
+            for r in rows]
+    scanned = copy.deepcopy(warm)
+    chunk = engine.make_scanned_train(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    got = []
+    for part in (rows[:3], rows[3:]):
+        _, _, metrics = chunk(scanned, data, part, gen)
+        got += metrics["distil_loss"].tolist()
+    a = dict(scanned.model.named_parameters())
+    b = dict(eager.model.named_parameters())
+    d = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in a)
+    u = sum(float(((b[k] - init[k]).double() ** 2).sum()) for k in a)
+    assert u > 0
+    return got, want, (d / u) ** 0.5, chunk
+
+
+@pytest.mark.parametrize("remat,dropout", [(False, 0.0), (True, 0.0),
+                                           (False, 0.2)])
+def test_scanned_train_graph_matches_eager_steps(cuda, remat, dropout,
+                                                 monkeypatch):
+    """``make_scanned_train`` on the card against the eager step loop
+    from one warm state on the same staged data and schedule, with and
+    without remat, and with dropout (the graph registers the generator,
+    so each replay draws the next step's masks): losses 1e-4 relative,
+    the parameters' update gap within SCAN_GAP (the graph's weight
+    gradients sum over a static row bound in another order). Without
+    remat and dropout, the planted fault, a graph whose step count does
+    not advance, must read past SCAN_GAP."""
+    from dropclip_tpu_torch.distill.train_state import AmsgradChain
+
+    got, want, gap, chunk = _scanned_against_eager(cuda, remat, dropout)
+    assert chunk.cache["step"].graph is not None
+    # forward and dgrad of 16 convs, and with remat the forward again
+    assert chunk.cache["step"].k1_launches == (3 if remat else 2) * 16
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert gap <= SCAN_GAP
+    if remat or dropout:
+        return
+    update = AmsgradChain.update
+
+    def frozen(chain, model, opt_state, count=None):
+        norm = update(chain, model, opt_state, count)
+        if count is not None:
+            count.sub_(1)
+        return norm
+
+    monkeypatch.setattr(AmsgradChain, "update", frozen)
+    assert _scanned_against_eager(cuda, remat, dropout)[2] > SCAN_GAP

@@ -2,8 +2,8 @@
 train_distil``) on the CPU: the canonical config with the tiny arch on a
 fake .npz dataset, one epoch with a checkpoint, then a resumed run at the
 next epoch; grounding eval and the visualization dump with a CLIP
-checkpoint file, in one process and in two (gloo); options that wait
-for later slices raise."""
+checkpoint file, in one process and in two (gloo); scan_epochs and
+profile_dir."""
 
 import os
 import subprocess
@@ -62,17 +62,41 @@ def test_train_cli_one_epoch_then_resume(tmp_path):
     ("scan_epochs", "2"), ("clip_checkpoint", "random"),
     ("profile_dir", "/nonexistent"), ("visualize", "True")])
 def test_train_cli_refuses_unported_options(tmp_path, key, value):
-    """scan_epochs and profile_dir raise NotImplementedError naming their
-    ROADMAP item, before any data is read. Grounding eval
+    """The options that raised until their slice was ported now run.
+    scan_epochs 2 (one process): two epochs of 2 steps as one scanned
+    chunk, a checkpoint of epoch 1 at step 4. profile_dir (one process,
+    12 steps an epoch, no validation; the value is replaced by a
+    directory under tmp_path): a torch.profiler trace of steps 10-11 that
+    ``core.xplane`` reads, its table in the log. Grounding eval
     (clip_checkpoint, the tiny-test text tower) and the visualization dump
     (visualize), which raised in several processes until DDP was ported,
     run at WORLD_SIZE=2 (two gloo processes, torchrun's variables): one
     epoch of 2 global steps, rank 0 logging the eval and writing the
     checkpoints, each rank dumping its own val scene."""
     if key in ("scan_epochs", "profile_dir"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_distil.main(_opts(str(tmp_path), str(tmp_path), 1, key,
-                                    value))
+        from dropclip_tpu_torch.core.xplane import HOST_SOURCE, read_totals
+
+        data = str(tmp_path / "data")
+        scan = key == "scan_epochs"
+        write_fake_processed_dataset(data, n_scenes=4 if scan else 24,
+                                     n_objects=2, feat_dim=16, fmt="npz")
+        if not scan:
+            value = str(tmp_path / "profile")
+        save = train_distil.main(_opts(data, str(tmp_path / "exp"),
+                                       2 if scan else 1, key, value,
+                                       "evaluate", str(scan)))
+        ck = restore_checkpoint(save)
+        with open(os.path.join(save, "train.log")) as f:
+            log = f.read()
+        if scan:
+            assert (ck["epoch"], ck["step"]) == (1, 4)
+            assert "scan epochs [0..2): 4 steps" in log
+        else:
+            assert (ck["epoch"], ck["step"]) == (0, 12)
+            assert os.listdir(value) == ["trace.rank-0.json"]
+            totals, source = read_totals(value)
+            assert source == HOST_SOURCE and totals
+            assert "profiler trace of steps 10-11" in log
         return
     data = str(tmp_path / "data")
     write_fake_processed_dataset(data, n_scenes=4, n_objects=2, feat_dim=16,
