@@ -133,7 +133,23 @@
    ``make_visualizations`` with ``viz_query`` on its checkpoint (K1 16 per
    forward, K6 25 per text encode) and every grasp ranking card against
    CPU (planted fault: the radius compared unsquared);
-10. the gather engine (``sparse_backend gather``, after the serve
+10. multi-card ingest and the geometry helpers (after the raw datasets'
+   teacher part, the ingest teacher still alive): ``run_blender`` with
+   ``--n-devices 2`` over the raw MV-TOD tree and ``run_synthetic`` with
+   ``--n-devices 2`` over 3 scenes, each file against the sequential run
+   of its scene (xyz and rgb within 1e-6, labels and vis_mask equal,
+   fused rows at cosine >= 0.9995; planted faults: two scenes' twins
+   swapped, object rows shifted), the clamp warning and one worker on
+   one card, K3 24, K7 47, K6 3 per chunk + 25 per scene, counted over
+   the worker's threads; ``geom.voxelize.sparse_quantize`` on the 8
+   serve clouds at capacity 8192 against the CPU and
+   ``sparse_quantize_np`` (every field equal), ``bicubic_upsample`` of a
+   (24, 32, 1024) map to 480x640 and ``project_2d_features_to_3d`` of
+   one ingest view within 1e-5 of max|ref| (planted faults: the map
+   through bf16, cx half a pixel off), the pose transforms of the 73
+   views within 1e-6 (planted fault: the pose through float16), card and
+   CPU times;
+11. the gather engine (``sparse_backend gather``, after the serve
    phase's card-vs-CPU check): ``GroundingPipeline(engine="gather")``
    with the serve phase's seed-0 weights on its 8 tabletop scenes, each
    scene's features in input order against the brick engine's (K1)
@@ -147,7 +163,7 @@
    ``train_distil`` and ``validate_blender`` in process with
    ``sparse_backend gather`` on a fake 768-d dataset (the validation's
    DistilLoss against the trainer's eval);
-11. multi-process training (after the eval path): ``tools/train_distil``
+12. multi-process training (after the eval path): ``tools/train_distil``
    at global batch 8 on a fake 768-d .npz dataset, world size 1 over
    NCCL (a group of one: every collective on the card) and world size 2
    (two processes on the one card over gloo), joined by the
@@ -157,7 +173,7 @@
    after 3 steps, their parameters and BN statistics against two planted
    faults (the gradients, the BN moments not summed over the ranks),
    checkpoints from rank 0 only;
-12. the exported program (after the train path): ``tools/export_model``
+13. the exported program (after the train path): ``tools/export_model``
    at configs/DistilBlender.yaml (cap 8192, 8 queries x 8 negatives) on
    the train CLI's checkpoint with ``--check``, saved as a ``.pt2`` and
    loaded through ``serve.load_exported``: on a tabletop scene and on the
@@ -165,7 +181,7 @@
    2e-5, K1 16 times a call inside the artifact (its registered op), the
    exported and the live call timed in turns; planted fault: one query
    embedding perturbed;
-13. the scanned trainer (after the teachers):
+14. the scanned trainer (after the teachers):
    ``make_scanned_train`` at the train path's recipe on 16 staged
    tabletop scenes (6000 voxels), three chunks of two epochs (4 steps of
    batch 8), one step captured as a CUDA graph and replayed, against the
@@ -179,16 +195,16 @@
    a fake 768-d .npz dataset (30 steps in one chunk, then a run that
    resumes its checkpoint) and with ``profile_dir`` (a trace of steps
    10-14 that ``core/xplane`` reads, K1 among its CUDA kernels);
-14. checkpoint conversion: a seeded MinkUNet14D written in
+15. checkpoint conversion: a seeded MinkUNet14D written in
    MinkowskiEngine's layout under each kernel-offset order, converted by
    ``tools/convert_checkpoint --offset-order auto`` on probe scenes whose
    targets that student produced (the right order chosen both times), the
    result served through ``GroundingPipeline.from_checkpoint`` within 1e-6
    of the source student's features; planted fault: the wrong order
    forced;
-15. ``tools/profile.py`` on its four surfaces at full shapes (train and
+16. ``tools/profile.py`` on its four surfaces at full shapes (train and
    infer name K1, teacher K3 and K7, every table read from CUDA kernels);
-16. prints the ``kernels`` JSON line, the card line and, last,
+17. prints the ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero. Without a CUDA card the
@@ -258,34 +274,59 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, per=1, reps=51, warm=50):
+DEVICE_MS_QUEUED = []  # device_ms readings taken behind a held stream
+
+
+def device_ms(fn, per=1, reps=51, warm=50, tag=None):
     """Median device time (ms) of a call of ``fn`` (``per`` kernels a
     call) over ``reps`` calls, from torch.profiler's kernel durations. A
     session in a process that has profiled before can miss the kernels of
-    its first calls, so ``warm`` calls run inside the session first and
-    the last ``reps * per`` kernels, in launch order, are the calls read."""
+    its first calls (the first half of 101 short calls once), so ``warm``
+    calls run inside the session first, four times as many in each session
+    taken again, and the last ``reps * per`` kernels, in launch order, are
+    the calls read. Where three sessions all see too few, the reading is
+    ``queued_ms``'s instead, and ``tag`` goes into DEVICE_MS_QUEUED."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session that saw too few kernels is taken again
+    for attempt in range(3):  # a session that saw too few is taken again
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(warm + reps):
+            for _ in range(warm * 4 ** attempt + reps):
                 fn()
             torch.cuda.synchronize()
         kernels = sorted((e for e in prof.events()
                           if e.device_type == DeviceType.CUDA),
                          key=lambda e: e.time_range.start)
         if len(kernels) >= reps * per:
-            break
-    check(len(kernels) >= reps * per,
-          f"profiler saw {len(kernels)} kernels in {warm + reps} calls")
-    kernels = kernels[len(kernels) - reps * per:]
-    return float(np.median([
-        sum(e.time_range.elapsed_us() for e in kernels[i:i + per]) / 1e3
-        for i in range(0, len(kernels), per)]))
+            kernels = kernels[len(kernels) - reps * per:]
+            return float(np.median([
+                sum(e.time_range.elapsed_us() for e in kernels[i:i + per])
+                / 1e3 for i in range(0, len(kernels), per)]))
+        print(f"device_ms({tag}): the profiler saw {len(kernels)} kernels "
+              f"in {warm * 4 ** attempt + reps} calls", flush=True)
+    DEVICE_MS_QUEUED.append(tag)
+    return queued_ms(fn, reps)
+
+
+def queued_ms(fn, reps=51):
+    """Mean device time (ms) of a call of ``fn``: the stream is held by a
+    spin kernel while the host queues ``reps`` calls between two CUDA
+    events, so the card runs them back to back and no host gap lies
+    between the events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def host_ms(fns, reps=101):
@@ -3403,8 +3444,309 @@ def raw_phase(extractor, report):
     return dict(seconds=secs, k1=k1,
                 n={k: n1[k] + n2[k] + n3[k] + n4[k]
                    for k in ("K3", "K6", "K7")},
-                mvtod_root=mvtod_root, regrad_root=regrad_root,
-                regrad_proc=regrad_proc, sids=sids)
+                mvtod_root=mvtod_root, mvtod_proc=mvtod_proc,
+                regrad_root=regrad_root, regrad_proc=regrad_proc, sids=sids)
+
+
+# ---- multi-card ingest (--n-devices) and the geometry helpers, while the
+# ingest teacher is alive
+
+NDEV_DIR = os.path.join(RAW_DIR, "ndev")
+NDEV_SYN = SimpleNamespace(n_scenes=3, n_views=4, voxel_size=0.02)
+
+
+class Tee:
+    """stdout to the console and to a buffer (every thread's prints)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def scene_gap(g, c):
+    """One scene's file against its sequential twin: (exact, within the
+    ingest limits, readings)."""
+    same = (g["xyz"].shape == c["xyz"].shape
+            and g["obj_feats"].shape == c["obj_feats"].shape)
+    if not same:
+        return False, False, dict(shapes_equal=False)
+    r = dict(shapes_equal=True,
+             xyz=float(np.abs(g["xyz"] - c["xyz"]).max(initial=0.0)),
+             rgb=float(np.abs(g["rgb"] - c["rgb"]).max(initial=0.0)),
+             labels_equal=bool(np.array_equal(g["label"], c["label"])),
+             vis_equal=bool(np.array_equal(g["vis_mask"], c["vis_mask"])),
+             rows_cos=row_cos(g["obj_feats"], c["obj_feats"]),
+             rows_equal=bool(np.array_equal(g["obj_feats"],
+                                             c["obj_feats"])))
+    exact = (r["xyz"] == r["rgb"] == 0.0 and r["labels_equal"]
+             and r["vis_equal"] and r["rows_equal"])
+    close = (r["xyz"] <= INGEST_XYZ and r["rgb"] <= INGEST_XYZ
+             and r["labels_equal"] and r["vis_equal"]
+             and r["rows_cos"] >= INGEST_COS)
+    return exact, close, r
+
+
+def ndev_run(fn, args, extractor):
+    """``fn(args)`` in process with the ingest teacher, its stdout kept;
+    -> (results, stdout, launches, wall s)."""
+    from dropclip_tpu_torch.tools import preprocess_data as pre
+
+    tee = Tee(sys.stdout)
+    with mock.patch.object(pre, "build_extractor",
+                           lambda a, device=None: extractor), \
+            contextlib.redirect_stdout(tee), Launches() as counted:
+        results = fn(args)
+    return results, tee.text(), counted.n, counted.wall
+
+
+def n_devices_phase(extractor, raw, report):
+    """``--n-devices 2`` on the one card: ``run_blender`` over the raw
+    phase's MV-TOD tree (73 views 480x640, 692 RLE masks) against the raw
+    phase's sequential file of the same scene, and ``run_synthetic`` over
+    3 scenes against its sequential run in this phase, all .npz. Each
+    file against its twin: xyz and rgb within INGEST_XYZ, labels and
+    vis_mask equal, fused rows at cosine >= INGEST_COS (whether the files
+    are also bit-equal is printed); planted faults: the twins of two
+    scenes swapped, and one scene's object rows shifted by one. The
+    clamp warning must print, one worker run (``[dev0]`` only), and the
+    launches of each run equal K3 24, K7 47 and K6 3 per chunk + 25 per
+    scene's text queries, counted across the worker's threads. Returns
+    the launches of the two ``--n-devices`` runs."""
+    from dropclip_tpu_torch.data.synthetic import make_raw_scene
+    from dropclip_tpu_torch.tools import preprocess_data as pre
+
+    t0 = time.time()
+    shutil.rmtree(NDEV_DIR, ignore_errors=True)
+    read = lambda path: dict(np.load(path))
+    warn = "WARNING: --n-devices 2 > 1 local devices; using 1"
+    n_cards = torch.cuda.device_count()
+    out = {}
+    try:
+        # MV-TOD: the raw phase's run_blender wrote the sequential file
+        args = raw_args(root=raw["mvtod_root"], voxel_size=0.005 / 10.0,
+                        out=os.path.join(NDEV_DIR, "mvtod"), n_devices=2)
+        results, text, n, wall = ndev_run(pre.run_blender, args, extractor)
+        want = teacher_want(report["raw_mvtod"]["chunks"], 0, texts=1)
+        rel = os.path.join("train", "000000", "000000.npz")
+        check(len(results) == 1 and results[0][0] == os.path.join(
+            args.out, rel), f"run_blender --n-devices 2 results {results}")
+        exact, close, gap = scene_gap(read(results[0][0]), read(
+            os.path.join(raw["mvtod_proc"], rel)))
+        out["mvtod"] = dict(wall_s=wall, launches=n, want=want,
+                            stats=results[0][1], exact=exact, **gap)
+        print(f"run_blender --n-devices 2 (1 MV-TOD scene, {n_cards} "
+              f"card): {wall:.3f} s wall, launches {n}; against the "
+              f"sequential file: bit-equal {exact}, {gap}", flush=True)
+        check(n == want, f"run_blender --n-devices 2 launches {n}, want "
+              f"{want} (the sequential run's {report['raw_mvtod']['chunks']}"
+              " chunks)")
+        check(close, f"run_blender --n-devices 2 differs from the "
+              f"sequential file: {gap}")
+        logs = [text]
+
+        # Synthetic: 3 scenes, sequential then --n-devices 2
+        runs = {}
+        for nd in (1, 2):
+            a = raw_args(out=os.path.join(NDEV_DIR, f"syn{nd}"),
+                         n_devices=nd, **vars(NDEV_SYN))
+            runs[nd] = ndev_run(pre.run_synthetic, a, extractor)
+        logs.append(runs[2][1])
+        segs = [make_raw_scene(np.random.default_rng(sid), n_objects=3,
+                               n_views=NDEV_SYN.n_views)["segs"]
+                for sid in range(NDEV_SYN.n_scenes)]
+        chunks = sum(-(-present_pairs(sg) // extractor.chunk)
+                     for sg in segs)
+        want = teacher_want(chunks, 0, texts=NDEV_SYN.n_scenes)
+        files = {nd: [read(p) for p, _ in runs[nd][0]] for nd in (1, 2)}
+        check(len(files[1]) == len(files[2]) == NDEV_SYN.n_scenes,
+              "run_synthetic scene counts")
+        gaps = [scene_gap(g, c) for g, c in zip(files[2], files[1])]
+        fault_swap = scene_gap(files[2][0], files[1][1])
+        shifted = dict(files[1][1], obj_feats=np.roll(
+            files[1][1]["obj_feats"], 1, axis=0))
+        fault_rows = scene_gap(files[2][1], shifted)
+        out["synthetic"] = dict(
+            scenes=NDEV_SYN.n_scenes, chunks=chunks, want=want,
+            wall_s={nd: runs[nd][3] for nd in (1, 2)},
+            launches={nd: runs[nd][2] for nd in (1, 2)},
+            exact=[g[0] for g in gaps], readings=[g[2] for g in gaps],
+            fault_swapped_close=fault_swap[1],
+            fault_rows_close=fault_rows[1],
+            fault_rows_cos=fault_rows[2].get("rows_cos"))
+        print(f"run_synthetic ({NDEV_SYN.n_scenes} scenes, {chunks} "
+              f"chunks): sequential {runs[1][3]:.3f} s, launches "
+              f"{runs[1][2]}; --n-devices 2 {runs[2][3]:.3f} s, launches "
+              f"{runs[2][2]}; bit-equal {[g[0] for g in gaps]}; "
+              f"{[g[2] for g in gaps]}; planted faults within the limits: "
+              f"scenes swapped {fault_swap[1]}, rows shifted "
+              f"{fault_rows[1]} (cosine {fault_rows[2].get('rows_cos')})",
+              flush=True)
+        check(runs[1][2] == runs[2][2] == want,
+              f"run_synthetic launches {runs[1][2]} / {runs[2][2]}, want "
+              f"{want}")
+        check(all(g[1] for g in gaps), "run_synthetic --n-devices 2 "
+              f"differs from the sequential run: {[g[2] for g in gaps]}")
+        check(not fault_swap[1] and not fault_rows[1],
+              "the file comparison does not see a planted fault")
+        for log in logs:
+            check((warn in log) == (n_cards < 2),
+                  f"the clamp warning ({n_cards} cards): {log[-400:]}")
+            check("[dev0]" in log and ("[dev1]" in log) == (n_cards > 1),
+                  f"workers on {n_cards} cards: {log[-400:]}")
+        out["warning_printed"] = warn in logs[0]
+    finally:
+        shutil.rmtree(NDEV_DIR, ignore_errors=True)
+    out["seconds"] = time.time() - t0
+    report["n_devices"] = out
+    print(f"n_devices phase: {out['seconds']:.1f} s", flush=True)
+    return {k: out["mvtod"]["launches"][k]
+            + out["synthetic"]["launches"][2][k] for k in ("K3", "K6", "K7")}
+
+
+GEOM_CAPACITY = 8192
+GEOM_REL = 1e-5  # bicubic upsample and projection, of max|ref|
+GEOM_POSE = 1e-6  # pose transforms, max |d|
+
+
+def max_rel(got, ref):
+    """max |got - ref| / max |ref| (float64)."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def timed_pair(fn, cuda_args, cpu_args, reps=10, host_reps=None):
+    """(card result, CPU result, card ms by CUDA events over ``reps``
+    calls, host ms of the CPU call, median of ``host_reps``)."""
+    got = fn(*cuda_args)
+    ref = fn(*cpu_args)
+    card = cuda_ms(lambda: fn(*cuda_args), reps)
+    host = host_ms([lambda: fn(*cpu_args)], reps=host_reps or reps)[0]
+    return got, ref, card, host
+
+
+def geom_phase(clouds, report):
+    """The geometry helpers on the card against the CPU: ``sparse_quantize``
+    on the 8 serve clouds at capacity 8192 (voxel 0.05, seeded labels in
+    [0, 8)), equal to ``data/voxelize_np.sparse_quantize_np`` on every
+    field and to its own CPU run; ``bicubic_upsample`` of a seeded
+    (24, 32, 1024) map (ViT-L's patch grid at 336x448, its width) to
+    480x640, then ``project_2d_features_to_3d`` of one ingest view's
+    depth with that map and the view's pose, within GEOM_REL of max|ref|
+    (planted faults: the map through bf16, cx half a pixel off);
+    the pose transforms of the 73 ingest views about view 0 within
+    GEOM_POSE (planted fault: the camera pose through float16). Card ms
+    (CUDA events) and the CPU run's host ms for each."""
+    from dropclip_tpu_torch.data.voxelize_np import sparse_quantize_np
+    from dropclip_tpu_torch.geom import projections as proj
+    from dropclip_tpu_torch.geom import transforms as tr
+    from dropclip_tpu_torch.geom.voxelize import sparse_quantize
+
+    out = {}
+    rng = np.random.RandomState(SEED)
+    labels = [rng.randint(0, 8, len(c)).astype(np.int32) for c in clouds]
+    vq = lambda x, lab: sparse_quantize(x, 0.05, GEOM_CAPACITY, labels=lab)
+    card_ms, host_ms_, np_ms, voxels = [], [], [], []
+    for xyz, lab in zip(clouds, labels):
+        x, l = torch.as_tensor(xyz), torch.as_tensor(lab)
+        got, ref, c_ms, h_ms = timed_pair(vq, (x.cuda(), l.cuda()), (x, l))
+        t = time.perf_counter()
+        host = sparse_quantize_np(xyz, 0.05, GEOM_CAPACITY, labels=lab)
+        np_ms.append((time.perf_counter() - t) * 1e3)
+        for name, r in ref._asdict().items():
+            g = getattr(got, name)
+            check(g.is_cuda and torch.equal(g.cpu(), r),
+                  f"sparse_quantize {name}: card differs from the CPU")
+            h = np.asarray(getattr(host, name))
+            check(np.array_equal(r.numpy(), h),
+                  f"sparse_quantize {name}: differs from sparse_quantize_np")
+        card_ms.append(c_ms)
+        host_ms_.append(h_ms)
+        voxels.append(int(ref.num_voxels))
+    out["sparse_quantize"] = dict(
+        clouds=len(clouds), points=[len(c) for c in clouds], voxels=voxels,
+        card_ms=card_ms, host_ms=host_ms_, numpy_ms=np_ms)
+    print(f"sparse_quantize ({len(clouds)} serve clouds, {min(voxels)}-"
+          f"{max(voxels)} voxels of {GEOM_CAPACITY}, voxel 0.05): card "
+          f"equals CPU and sparse_quantize_np on every field; card "
+          f"{np.mean(card_ms):.3f} "
+          f"ms, CPU {np.mean(host_ms_):.3f} ms, numpy {np.mean(np_ms):.3f} "
+          "ms a cloud", flush=True)
+
+    scene = make_ingest_scene(1, INGEST_VIEWS, (480, 640), 10, 400)
+    fmap = torch.as_tensor(rng.randn(24, 32, 1024).astype(np.float32))
+    up, up_cpu, up_card_ms, up_host_ms = timed_pair(
+        proj.bicubic_upsample, (fmap.cuda(), (480, 640)), (fmap, (480, 640)),
+        reps=5, host_reps=1)
+    up_rel = max_rel(up, up_cpu)
+    up_fault = max_rel(proj.bicubic_upsample(
+        fmap.cuda().bfloat16().float(), (480, 640)), up_cpu)
+    depth = torch.as_tensor(scene["depths"][0])
+    K = torch.as_tensor(scene["K"])
+    pose = torch.as_tensor(scene["poses"][0])
+    lift = lambda d, f, k, p: proj.project_2d_features_to_3d(
+        d, f, k, camera_pose=p)
+    up_cpu_f = up_cpu.float()
+    (pc, feats), (pc_cpu, feats_cpu), pj_card_ms, pj_host_ms = timed_pair(
+        lift, (depth.cuda(), up, K.cuda(), pose.cuda()),
+        (depth, up_cpu_f, K, pose), reps=5, host_reps=3)
+    pc_rel, feats_rel = max_rel(pc, pc_cpu), max_rel(feats, feats_cpu)
+    K_off = K.clone()
+    K_off[0, 2] += 0.5  # the principal point half a pixel off
+    pc_fault = max_rel(lift(depth.cuda(), up, K_off.cuda(), pose.cuda())[0],
+                       pc_cpu)
+    out["bicubic_upsample"] = dict(shape=[24, 32, 1024], out=[480, 640],
+                                   rel=up_rel, fault_rel=up_fault,
+                                   card_ms=up_card_ms, host_ms=up_host_ms)
+    out["project_2d_features_to_3d"] = dict(
+        points=int(pc.shape[0]), pc_rel=pc_rel, feats_rel=feats_rel,
+        fault_rel=pc_fault, card_ms=pj_card_ms, host_ms=pj_host_ms)
+    print(f"bicubic_upsample (24, 32, 1024) -> 480x640: card vs CPU "
+          f"{up_rel:.3e} of max|ref| (fault, the map through bf16: "
+          f"{up_fault:.3e}); card {up_card_ms:.3f} ms, CPU {up_host_ms:.3f} "
+          f"ms; project_2d_features_to_3d of one ingest view "
+          f"({pc.shape[0]} points x 1024): points {pc_rel:.3e}, features "
+          f"{feats_rel:.3e} (fault, cx half a pixel off: "
+          f"{pc_fault:.3e}); card {pj_card_ms:.3f} ms, CPU "
+          f"{pj_host_ms:.3f} ms", flush=True)
+    check(up_rel <= GEOM_REL and pc_rel <= GEOM_REL and feats_rel <= GEOM_REL,
+          "bicubic_upsample or project_2d_features_to_3d: card differs "
+          "from the CPU")
+    check(up_fault > GEOM_REL and pc_fault > GEOM_REL,
+          "the geometry limit does not see a planted fault")
+    del up, up_cpu, up_cpu_f, pc, feats, pc_cpu, feats_cpu
+    torch.cuda.empty_cache()
+
+    poses = torch.as_tensor(scene["poses"])
+    pose_out = {}
+    for name in ("transform_poses_to_camera_frame",
+                 "transform_poses_to_world_frame"):
+        fn = getattr(tr, name)
+        got, ref, c_ms, h_ms = timed_pair(
+            fn, (poses.cuda(), pose.cuda()), (poses, pose), reps=20)
+        d = float((got.cpu() - ref).abs().max())
+        fault = float((fn(poses.cuda(), pose.cuda().half().float()).cpu()
+                       - ref).abs().max())
+        pose_out[name] = dict(max_abs=d, fault_max_abs=fault, card_ms=c_ms,
+                              host_ms=h_ms)
+        check(d <= GEOM_POSE, f"{name}: card differs from the CPU by {d}")
+        check(fault > GEOM_POSE, f"{name}: the limit does not see the "
+              "camera pose through float16")
+    out["pose_transforms"] = pose_out
+    print(f"pose transforms ({INGEST_VIEWS} views about view 0): "
+          + "; ".join(f"{k.split('_')[-2]} max |d| {v['max_abs']:.3e} "
+                      f"(fault {v['fault_max_abs']:.3e}), card "
+                      f"{v['card_ms']:.4f} ms, CPU {v['host_ms']:.4f} ms"
+                      for k, v in pose_out.items()), flush=True)
+    report["geom"] = out
 
 
 def no_flip_pixels(xyz, pose, K, hw):
@@ -4936,10 +5278,10 @@ def teacher_norm_phase(report):
                    plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(library, 20),
                    bound_ms=max(flops / PEAK_FLOPS[dtype],
                                 nbytes / PEAK_BYTES) * 1e3, bound_by="bytes")
-        row["device_ms"] = device_ms(kernel)
+        row["device_ms"] = device_ms(kernel, tag=tag)
         # the library's K7 is an add and F.layer_norm: two kernels a call
-        row["library_device_ms"] = device_ms(library, 1 + tag.startswith(
-            "K7"))
+        row["library_device_ms"] = device_ms(
+            library, 1 + tag.startswith("K7"), tag=f"{tag} library")
         row["host_ms"], row["library_host_ms"] = host_ms((kernel, library))
         rows[tag] = row
         print(f"{tag} ({n}, {c}) eps {eps}: err {err:.3e}, planted fault "
@@ -5659,6 +6001,8 @@ def main():
     ingest_profile_phase(extractor, scene, report)
     n_re = run_eval_phase(extractor, scene, report)
     raw = raw_phase(extractor, report)
+    ndev = n_devices_phase(extractor, raw, report)
+    geom_phase(clouds, report)
     del extractor
     torch.cuda.empty_cache()
     ingest_cpu_phase(report)
@@ -5696,10 +6040,11 @@ def main():
         dict(name="K3 oneshot_attention_packed", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:180",
-             launches=n_ing["K3"] + n_re["K3"] + raw["n"]["K3"] + tn["K3"],
+             launches=(n_ing["K3"] + n_re["K3"] + raw["n"]["K3"] + tn["K3"]
+                       + ndev["K3"]),
              ingest_launches=n_ing["K3"], run_eval_launches=n_re["K3"],
              raw_launches=raw["n"]["K3"], teacher_launches=tn["K3"],
-             **att["K3"]),
+             n_devices_launches=ndev["K3"], **att["K3"]),
         dict(name="K4 oneshot_attention", route="cuda",
              source="dropclip_tpu_torch/csrc/attention.cu",
              replaces="dropclip_tpu/ops/attention.py:93",
@@ -5718,9 +6063,10 @@ def main():
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:153",
              launches=(k6_n + k6_np + n_ing["K6"] + n_re["K6"] + k6_eval_n
-                       + raw["n"]["K6"] + k6_raw + tn["K6"] + k6_gather),
+                       + raw["n"]["K6"] + k6_raw + tn["K6"] + k6_gather
+                       + ndev["K6"]),
              run_eval_launches=n_re["K6"], eval_launches=k6_eval_n,
-             gather_launches=k6_gather,
+             gather_launches=k6_gather, n_devices_launches=ndev["K6"],
              raw_launches=raw["n"]["K6"] + k6_raw,
              teacher_launches=tn["K6"], **k6, teacher_rows={
                  tag: row for tag, row in trows.items()
@@ -5728,18 +6074,23 @@ def main():
         dict(name="K7 add_layer_norm", route="triton",
              source="dropclip_tpu_torch/ops/layernorm.py",
              replaces="dropclip_tpu/ops/layernorm.py:125",
-             launches=n_ing["K7"] + n_re["K7"] + raw["n"]["K7"] + tn["K7"],
+             launches=(n_ing["K7"] + n_re["K7"] + raw["n"]["K7"] + tn["K7"]
+                       + ndev["K7"]),
              ingest_launches=n_ing["K7"], run_eval_launches=n_re["K7"],
-             raw_launches=raw["n"]["K7"], teacher_launches=tn["K7"], **k7,
+             raw_launches=raw["n"]["K7"], teacher_launches=tn["K7"],
+             n_devices_launches=ndev["K7"], **k7,
              teacher_rows={
                  tag: row for tag, row in trows.items()
                  if tag.startswith("K7")}),
     ]
     check(all(kernels[i]["teacher_launches"] > 0 for i in range(2, 7)),
           "a kernel of the teacher paths never launched")
+    check(all(kernels[i]["n_devices_launches"] > 0 for i in (2, 5, 6)),
+          "K3, K6 or K7 never launched in the --n-devices runs")
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths never launched")
     report["kernels"] = kernels
+    report["device_ms_queued"] = DEVICE_MS_QUEUED
     report["seconds"] = time.time() - t0
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json"),
               "w") as f:

@@ -1,23 +1,32 @@
-"""Voxel-average downsampling with a majority label vote, on the device.
+"""Fixed-capacity voxelization on the device: sparse quantization and
+voxel-average downsampling with a majority label vote.
 
-Port of ``ravel_grid_coords`` and ``voxel_downsample`` from
-``dropclip_tpu/geom/voxelize.py`` (replacing Open3D's
-``voxel_down_sample_and_trace`` + Counter vote, reference
-utils/geometry.py:186-201). Voxel identity is a packed int32 key; a
-stable sort of the keys gives each point its voxel's rank (run heads +
-cumsum), and one (N, 7 + labels) payload of [count, xyz, colour, one-hot
-label] is summed per voxel with ``index_add_``, in chunks of 4M points so
-the payload's memory stays bounded. Voxels come out in ascending key
-order, padded to ``capacity`` with a mask.
+Port of ``dropclip_tpu/geom/voxelize.py``. Voxel identity is a packed
+int32 key (``ravel_grid_coords``, ``unravel_key``); a stable sort of the
+keys gives each point its voxel's rank (run heads + cumsum).
 
-On the card the float sums run with atomics in no fixed order, so voxel
-means differ from the CPU's in the last bits; counts, ranks, labels and
-``dropped`` are exact.
+- ``sparse_quantize`` replaces ``ME.utils.sparse_quantize`` (reference
+  data/dataset_blender.py:406-414): one representative point per voxel
+  (the minimum original index), the inverse map point -> voxel (-1 for
+  invalid or dropped points), per-voxel labels with ``ignore_label`` on
+  conflict, the voxel count and an overflow flag. Torch ops only, with
+  no read back to the host, over any leading batch axes.
+- ``voxel_downsample`` replaces Open3D's ``voxel_down_sample_and_trace``
+  + Counter vote (reference utils/geometry.py:186-201): one (N, 7 +
+  labels) payload of [count, xyz, colour, one-hot label] is summed per
+  voxel with ``index_add_``, in chunks of 4M points so the payload's
+  memory stays bounded.
+
+Voxels come out in ascending key order, padded to ``capacity`` with a
+mask. On the card ``voxel_downsample``'s float sums run with atomics in
+no fixed order, so voxel means differ from the CPU's in the last bits;
+counts, ranks, labels and ``dropped`` are exact, as is every field of
+``sparse_quantize``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,6 +47,101 @@ def ravel_grid_coords(grid: torch.Tensor, bits: int = 10,
     if valid is not None:
         in_range = in_range & valid
     return torch.where(in_range, key, torch.full_like(key, INVALID_KEY))
+
+
+def unravel_key(key: torch.Tensor, bits: int = 10) -> torch.Tensor:
+    """Inverse of ``ravel_grid_coords`` for valid keys: (...) -> (..., 3)."""
+    bias = 1 << (bits - 1)
+    low = (1 << bits) - 1
+    return torch.stack([(key >> (2 * bits)) & low, (key >> bits) & low,
+                        key & low], dim=-1).to(torch.int32) - bias
+
+
+class Voxelized(NamedTuple):
+    """Fixed-capacity voxelization (all tensors padded to V = capacity,
+    with the leading batch axes of the input).
+
+    coords:      (..., V, 3) int32 voxel grid coords, ascending key order.
+    mask:        (..., V) bool occupancy.
+    unique_idx:  (..., V) int32 input point that represents each voxel
+                 (the minimum original index).
+    inverse_map: (..., N) int32 voxel of every input point (-1: invalid
+                 or past capacity).
+    labels:      (..., V) int32 per-voxel label, ``ignore_label`` where
+                 the voxel's points disagree; zeros without labels.
+    num_voxels:  (...) int32 voxels kept (<= V).
+    overflowed:  (...) bool, True where unique voxels exceeded capacity
+                 (the extra voxels were dropped).
+    """
+
+    coords: torch.Tensor
+    mask: torch.Tensor
+    unique_idx: torch.Tensor
+    inverse_map: torch.Tensor
+    labels: torch.Tensor
+    num_voxels: torch.Tensor
+    overflowed: torch.Tensor
+
+
+def sparse_quantize(xyz: torch.Tensor, voxel_size: float, capacity: int,
+                    valid: Optional[torch.Tensor] = None,
+                    labels: Optional[torch.Tensor] = None,
+                    ignore_label: int = 0, bits: int = 10) -> Voxelized:
+    """Quantize (..., N, 3) float points to a fixed-capacity voxel set:
+    grid = floor(xyz / voxel_size), one representative per voxel, the
+    inverse map, per-voxel labels with conflict -> ``ignore_label``
+    (``ME.utils.sparse_quantize(..., return_index=True,
+    return_inverse=True)``). Writes past ``capacity`` go to a slot
+    ``capacity`` that is cut off, as the JAX package's ``mode="drop"``
+    and its ``capacity + 1`` segments do."""
+    dev = xyz.device
+    if valid is None:
+        valid = torch.ones(xyz.shape[:-1], dtype=torch.bool, device=dev)
+    grid = torch.floor(xyz / voxel_size).to(torch.int32)
+    keys = ravel_grid_coords(grid, bits=bits, valid=valid)
+    sorted_keys, order = torch.sort(keys, dim=-1, stable=True)
+    sorted_valid = sorted_keys != INVALID_KEY
+    heads = sorted_valid.clone()
+    heads[..., 1:] &= sorted_keys[..., 1:] != sorted_keys[..., :-1]
+    vid = torch.cumsum(heads, dim=-1, dtype=torch.int32) - 1
+    num_voxels = heads.sum(dim=-1, dtype=torch.int32)
+    overflowed = num_voxels > capacity
+    kept = num_voxels.clamp(max=capacity)
+    keep = sorted_valid & (vid < capacity)
+
+    # the inverse map back in the input order
+    inv_sorted = torch.where(keep, vid, torch.full_like(vid, -1))
+    inverse_map = torch.empty_like(inv_sorted).scatter_(-1, order,
+                                                        inv_sorted)
+    # the representative: each voxel's run head, the minimum original
+    # index because the sort is stable
+    slot = torch.where(heads & keep, vid, torch.full_like(vid, capacity))
+    unique_idx = torch.zeros((*xyz.shape[:-2], capacity + 1),
+                             dtype=torch.int32, device=dev).scatter_(
+        -1, slot.to(torch.int64), order.to(torch.int32))[..., :capacity]
+    vmask = torch.arange(capacity, device=dev) < kept[..., None]
+    rep = torch.gather(grid, -2, unique_idx.to(torch.int64)[..., None]
+                       .expand(*unique_idx.shape, 3))
+    coords = torch.where(vmask[..., None], rep, torch.zeros_like(rep))
+
+    vlabels = torch.zeros(vmask.shape, dtype=torch.int32, device=dev)
+    if labels is not None:
+        seg = torch.where(keep, vid, torch.full_like(vid, capacity)).to(
+            torch.int64)
+        lab_sorted = torch.gather(labels.to(torch.int32).expand(
+            xyz.shape[:-1]), -1, order)
+        buf = torch.zeros((*xyz.shape[:-2], capacity + 1),
+                          dtype=torch.int32, device=dev)
+        lmin = buf.scatter_reduce(-1, seg, lab_sorted, "amin",
+                                  include_self=False)[..., :capacity]
+        lmax = buf.scatter_reduce(-1, seg, lab_sorted, "amax",
+                                  include_self=False)[..., :capacity]
+        same = torch.where(lmin == lmax, lmin,
+                           torch.full_like(lmin, ignore_label))
+        vlabels = torch.where(vmask, same, vlabels)
+    return Voxelized(coords=coords, mask=vmask, unique_idx=unique_idx,
+                     inverse_map=inverse_map, labels=vlabels,
+                     num_voxels=kept, overflowed=overflowed)
 
 
 def voxel_downsample(xyz: torch.Tensor, colors: torch.Tensor,

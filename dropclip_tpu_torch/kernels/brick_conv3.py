@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..sparse.bricks import BrickLevel, brick_conv
+from . import count_launch
 from .nvcc import library
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -268,7 +269,7 @@ def _brick_conv3_cuda(feats, nbr, weights, occ, order, n_occ, masks):
             order.data_ptr(), n_occ.data_ptr(), masks.data_ptr(),
             out.data_ptr(), bm, bx, by, bz, c, cout, kind, stream)
     LIB.check(err, "brick_conv3")
-    counter.launches += 1
+    count_launch(counter)
     return out
 
 

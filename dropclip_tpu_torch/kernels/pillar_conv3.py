@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..sparse.pillar_ops import gather_rows, z_shift
+from . import count_launch
 from .brick_conv3 import KINDS, instance
 from .nvcc import library
 
@@ -195,7 +196,7 @@ def pillar_conv3(feats: torch.Tensor, nbr: torch.Tensor,
             sums.data_ptr(), counts.data_ptr(), p, z, c, cout, int(relu),
             kind, n_sm, counts.numel(), stream)
     LIB.check(err, "pillar_conv3")
-    pillar_conv3.launches += 1
+    count_launch(pillar_conv3)
     return out
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..core.platform import env_flag
+from ..kernels import count_launch
 
 LOG2E = 1.4426950408889634
 _VMEM_BUDGET = 25 * 1024 * 1024
@@ -113,7 +114,7 @@ def oneshot_attention_packed(q: torch.Tensor, k: torch.Tensor,
     if not q.is_cuda:
         return oneshot_attention_packed_plain(q, k, v, heads)
     out = _launch(q, k, v, heads, False)
-    oneshot_attention_packed.launches += 1
+    count_launch(oneshot_attention_packed)
     return out
 
 
@@ -123,7 +124,7 @@ def oneshot_attention(q: torch.Tensor, k: torch.Tensor,
     if not q.is_cuda:
         return oneshot_attention_plain(q, k, v)
     out = _launch(q, k, v, q.shape[2], False)
-    oneshot_attention.launches += 1
+    count_launch(oneshot_attention)
     return out
 
 
@@ -134,7 +135,7 @@ def flash_attention_padded(q: torch.Tensor, k: torch.Tensor,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
     out = _launch(q, k, v, q.shape[2], causal)
-    flash_attention_padded.launches += 1
+    count_launch(flash_attention_padded)
     return out
 
 

@@ -38,6 +38,8 @@ built, never at module import.
 
 import torch
 
+from ..kernels import count_launch
+
 # widest row (in lanes) that one warp takes whole, two rows to a program,
 # and the fewest rows that take that path: below it the one-warp programs
 # (4 to an SM of the H100's 132 at 1024 rows) leave the card idle, and a
@@ -169,7 +171,7 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if rows == 0:
         return y
     _launch(_ln_rows, (x, scale, bias, y), rows, c, eps)
-    layer_norm.launches += 1
+    count_launch(layer_norm)
     return y
 
 
@@ -200,7 +202,7 @@ def add_layer_norm(res: torch.Tensor, delta: torch.Tensor,
     if rows == 0:
         return s, y
     _launch(_add_ln_rows, (res, delta, scale, bias, s, y), rows, c, eps)
-    add_layer_norm.launches += 1
+    count_launch(add_layer_norm)
     return s, y
 
 

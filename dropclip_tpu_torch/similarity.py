@@ -24,6 +24,27 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0
     return x / (torch.linalg.vector_norm(x, dim=dim, keepdim=True) + eps)
 
 
+def paired_softmax_probs(vis_norm: torch.Tensor, pos_emb: torch.Tensor,
+                         neg_embs: torch.Tensor, temp: float = SOFTMAX_TEMP,
+                         neg_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """(..., C) x (C,) x (K, C) -> (...,) positive probability (reference
+    similarity.py:49-62): softmax over [pos x K_real, negs], first
+    column. ``neg_mask`` (K,) marks the real rows of a padded negative
+    set: padded rows add neither a negative term nor a positive copy."""
+    pos = vis_norm @ pos_emb
+    neg = vis_norm @ neg_embs.T
+    if neg_mask is None:
+        neg_mask = torch.ones(neg_embs.shape[0], dtype=torch.bool,
+                              device=neg_embs.device)
+    n_real = neg_mask.to(torch.float32).sum()
+    hi = torch.maximum(pos, torch.where(neg_mask, neg, -torch.inf).amax(-1))
+    e_pos = torch.exp((pos - hi) / temp)
+    e_neg = torch.where(neg_mask, torch.exp((neg - hi[..., None]) / temp),
+                        0.0)
+    return torch.nan_to_num(e_pos / (n_real * e_pos + e_neg.sum(-1)))
+
+
 def _masked_minmax(x: torch.Tensor, mask: Optional[torch.Tensor]
                    ) -> torch.Tensor:
     """Min-max normalize each row of (Q, N) over its valid entries (x/max

@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..geom.voxelize import INVALID_KEY, ravel_grid_coords
+from ..geom.voxelize import INVALID_KEY, ravel_grid_coords, unravel_key
 
 
 def kernel_offsets(size: int, dim: int = 3) -> np.ndarray:
@@ -66,14 +66,6 @@ class UNetTopology(NamedTuple):
     up_offset: Tuple[torch.Tensor, ...]  # (B, M_l) child offset in [0, 8)
     order: torch.Tensor                  # (B, M0) input row of each slot
     dropped: torch.Tensor                # (B, L) int32 voxels lost
-
-
-def unravel_key(key: torch.Tensor, bits: int = 10) -> torch.Tensor:
-    """Inverse of ``ravel_grid_coords`` for valid keys: (...) -> (..., 3)."""
-    bias = 1 << (bits - 1)
-    low = (1 << bits) - 1
-    return torch.stack([(key >> (2 * bits)) & low, (key >> bits) & low,
-                        key & low], dim=-1).to(torch.int32) - bias
 
 
 def _lookup(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

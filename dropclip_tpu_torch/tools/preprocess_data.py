@@ -28,12 +28,16 @@ seed; ``--format npz`` writes numpy archives of the same schema):
   python -m dropclip_tpu_torch.tools.preprocess_data -ds Synthetic \\
       -c OUT_DIR --n-scenes 4 [--clip-checkpoint CLIP.pt] [--device cpu]
 
-``--n-devices`` above 1 (one scene per card) is not ported.
+``--n-devices N`` (Blender and Synthetic) ingests on N local cards at
+once, one worker thread and one teacher replica per card, scenes dealt
+round-robin (``_run_multidevice``); with ``--device cpu`` it runs N CPU
+workers.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -276,8 +280,9 @@ def run_blender(args, write: Callable = scene_io.write_scene) -> list:
     EXCLUSIVE, -1 = all) of ``args.root``'s split: a loader thread reads
     and stages scene i+1 while scene i runs on the card, and the writer
     thread (``SceneWriter``) fetches and writes scene i-1 through
-    ``write``. Existing outputs are skipped. Returns the writer's
-    (path, stats) per scene."""
+    ``write``. Existing outputs are skipped. ``args.n_devices`` above 1
+    deals the scenes over that many cards (``_run_multidevice``).
+    Returns the writer's (path, stats) per scene."""
     from ..data.blender import BlenderDataset
 
     dataset = BlenderDataset(args.root, models_root=args.models_root,
@@ -286,7 +291,7 @@ def run_blender(args, write: Callable = scene_io.write_scene) -> list:
     os.makedirs(args.out, exist_ok=True)
     end = args.end if args.end >= 0 else len(dataset.scene_ids)
 
-    def load_one(sid: int):
+    def load_one(sid: int, device=extractor.device):
         scene_id = f"{sid:06d}"
         out_path = os.path.join(args.out, args.split, scene_id,
                                 f"{scene_id}.{args.format}")
@@ -308,10 +313,12 @@ def run_blender(args, write: Callable = scene_io.write_scene) -> list:
             obj_info=scene["objects_info"], out_path=out_path,
             voxel_size=args.voxel_size * scene["world_scale"])
         kw["staged"] = stage_scene(kw["images"], kw["depths"], kw["segs"],
-                                   kw["poses"], kw["K"],
-                                   device=extractor.device)
+                                   kw["poses"], kw["K"], device=device)
         return scene_id, kw
 
+    if getattr(args, "n_devices", 1) > 1:
+        return _run_multidevice(extractor, load_one, range(args.start, end),
+                                args.n_devices, write)
     with ThreadPoolExecutor(1) as loader, SceneWriter() as writer:
         pending = None  # (scene_id, kwargs) read and staged, ready to run
         for sid in range(args.start, end + 1):
@@ -484,24 +491,102 @@ def run_regrad(args, write: Callable = scene_io.write_regrad_scene
     return results
 
 
-def run_synthetic(args) -> None:
-    """Full-pipeline smoke run on procedurally generated raw scenes."""
+def _local_devices(device: torch.device, n_devices: int) -> list:
+    """The devices of ``n_devices`` workers on ``device``'s kind: the
+    local cards, at most as many as there are (with the JAX package's
+    warning when fewer), or ``n_devices`` CPU workers (the counterpart of
+    the JAX tests' forced host devices)."""
+    if device.type != "cuda":
+        return [device] * n_devices
+    count = torch.cuda.device_count()
+    nd = min(n_devices, count)
+    if nd < n_devices:
+        print(f"WARNING: --n-devices {n_devices} > {count} local devices; "
+              f"using {nd}", flush=True)
+    return [torch.device("cuda", i) for i in range(nd)]
+
+
+def _run_multidevice(extractor: ClipExtractor, load_one: Callable, sids,
+                     n_devices: int,
+                     write: Callable = scene_io.write_scene) -> list:
+    """Single-host multi-card ingest: scenes dealt round-robin over the
+    local cards, one worker thread per card (the JAX package's
+    ``_run_multidevice``; the reference runs a spawn Pool of CUDA
+    processes, tools/preprocess_data.py:728-730). Each worker makes its
+    card current in its own thread (the CUDA runtime's current device is
+    per thread), runs its own teacher replica (``ClipExtractor.
+    on_device``), and has its own one-slot loader, which reads and stages
+    ``load_one(sid, device)`` for its next scene while the current one
+    runs, and its own ``SceneWriter``. Scenes are independent: no
+    collectives. Returns the (path, stats) of every written scene, by
+    path."""
+    devices = _local_devices(extractor.device, n_devices)
+    nd = len(devices)
+    replicas = [extractor.on_device(d) for d in devices]
+    sids = list(sids)
+
+    def worker(wi: int) -> list:
+        dev = devices[wi]
+        mine = sids[wi::nd]
+        current = (torch.cuda.device(dev) if dev.type == "cuda"
+                   else contextlib.nullcontext())
+        with current, SceneWriter() as writer, \
+                ThreadPoolExecutor(1) as loader:
+            nxt = loader.submit(load_one, mine[0], dev) if mine else None
+            for j in range(len(mine)):
+                loaded = nxt.result()
+                nxt = (loader.submit(load_one, mine[j + 1], dev)
+                       if j + 1 < len(mine) else None)
+                if loaded is None:
+                    continue
+                scene_id, kw = loaded
+                stats = process_scene(extractor=replicas[wi], writer=writer,
+                                      write=write, **kw)
+                print(f"{scene_id} [dev{wi}]: {stats}", flush=True)
+        return writer.results
+
+    with ThreadPoolExecutor(nd) as pool:
+        futs = [pool.submit(worker, wi) for wi in range(nd)]
+        results = [r for f in futs for r in f.result()]  # re-raises
+    return sorted(results, key=lambda r: r[0])
+
+
+def run_synthetic(args, write: Callable = scene_io.write_scene) -> list:
+    """Full-pipeline smoke run on procedurally generated raw scenes;
+    ``args.n_devices`` above 1 deals them over that many cards. Returns
+    the (path, stats) of every scene."""
     from ..data.synthetic import make_raw_scene
 
     extractor = build_extractor(args, device=args.device)
-    for sid in range(args.n_scenes):
+
+    def load_one(sid: int, device=None):
         scene_id = f"{sid:06d}"
         out_path = os.path.join(args.out, args.split, scene_id,
                                 f"{scene_id}.{args.format}")
-        # per-scene rng: the same scenes as the JAX package's run
+        # per-scene rng: the same scenes as the JAX package's run, in any
+        # order of the workers
         raw = make_raw_scene(np.random.default_rng(sid), n_objects=3,
                              n_views=args.n_views)
-        stats = process_scene(
-            images=raw["images"], depths=raw["depths"], segs=raw["segs"],
-            poses=raw["poses"], K=raw["K"], obj_info=raw["objects_info"],
-            extractor=extractor, out_path=out_path,
-            voxel_size=args.voxel_size, cloud_capacity=4096)
+        kw = dict(images=raw["images"], depths=raw["depths"],
+                  segs=raw["segs"], poses=raw["poses"], K=raw["K"],
+                  obj_info=raw["objects_info"], out_path=out_path,
+                  voxel_size=args.voxel_size, cloud_capacity=4096)
+        if device is not None:
+            kw["staged"] = stage_scene(kw["images"], kw["depths"],
+                                       kw["segs"], kw["poses"], kw["K"],
+                                       device=device)
+        return scene_id, kw
+
+    if getattr(args, "n_devices", 1) > 1:
+        return _run_multidevice(extractor, load_one, range(args.n_scenes),
+                                args.n_devices, write)
+    results = []
+    for sid in range(args.n_scenes):
+        scene_id, kw = load_one(sid)
+        stats = process_scene(extractor=extractor, write=write, **kw)
         print(f"{scene_id}: {stats}")
+        results.append((kw["out_path"], stats))
+    return results
 
 
 def main(argv=None) -> None:
@@ -529,15 +614,12 @@ def main(argv=None) -> None:
     p.add_argument("--n-scenes", type=int, default=4, help="synthetic only")
     p.add_argument("--n-views", type=int, default=4, help="synthetic only")
     p.add_argument("--n-devices", type=int, default=1,
-                   help="cards to ingest on concurrently (only 1 is ported)")
+                   help="local cards to ingest on concurrently, one worker "
+                        "thread each (Blender and Synthetic; with --device "
+                        "cpu, CPU workers)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
-    if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1 is not ported yet: it waits for its ROADMAP "
-            "queue 1 item 6 entry, --n-devices and the bench's "
-            "ingest_scaling mode")
     if args.dataset == "Blender":
         if not args.root:
             p.error("-r/--root is required for -ds Blender")

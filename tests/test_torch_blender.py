@@ -8,9 +8,11 @@ the dataset's ``use_view_clip`` features (within 1e-5) and
 metrics within 1e-6 where visibility agrees). Teachers are the float32
 tiny-test CLIP read from one synthesised checkpoint file on both sides."""
 
+import contextlib
 import json
 import os
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -205,8 +207,22 @@ def test_run_blender_matches_jax(work, ingested, capsys):
         m.setattr(tpre, "build_extractor", lambda args, device=None: tex)
         tpre.main(argv)
     assert capsys.readouterr().out.count("exists") == 2
-    with pytest.raises(NotImplementedError, match="ingest_scaling"):
-        tpre.main(argv + ["--n-devices", "2"])
+    # --n-devices 2: two CPU workers skip both scenes; on a host with one
+    # card (a stand-in extractor on "cuda", which no skipped scene
+    # reaches) the workers are clamped to one with the JAX warning
+    tpre.main(argv + ["--n-devices", "2"])
+    out = capsys.readouterr().out
+    assert out.count("exists") == 2 and "local devices" not in out
+    card = SimpleNamespace(device=torch.device("cuda"))
+    card.on_device = lambda device: card
+    with mp.context() as m:
+        m.setattr(tpre, "build_extractor", lambda args, device=None: card)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        m.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+        tpre.main(_ingest_argv(work, ingested["h5"], "--n-devices", "2"))
+    out = capsys.readouterr().out
+    assert "WARNING: --n-devices 2 > 1 local devices; using 1" in out
+    assert out.count("exists") == 2
     with pytest.raises(SystemExit):
         tpre.main(["-ds", "Blender", "-c", ingested["h5"]])
 

@@ -38,7 +38,8 @@ for m in ("teachers.convert", "distill.evaluate", "viz",
           "native", "data.rle", "data.blender", "data.regrad",
           "data.dataset_regrad", "geom.cleanup", "geom.knn", "grasp",
           "grasp.grasps", "grasp.gripper", "sparse.ops", "sparse.topology",
-          "core.distributed", "core.mesh"):
+          "core.distributed", "core.mesh", "geom.camera",
+          "data.image_utils"):
     assert "dropclip_tpu_torch." + m in mods, m
 import torch
 torch.cuda.is_available = lambda: False
@@ -168,3 +169,108 @@ def test_no_forbidden_imports_in_sources():
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
+
+
+# Public top-level defs and classes of dropclip_tpu/X.py that the port's
+# dropclip_tpu_torch/X.py does not define under the same name: "-> FILE:
+# NAME" names the port's counterpart, "none: ..." says why it has none.
+# ROADMAP.md's name map holds the same rows.
+NO_SAME_NAME = {
+    "core/mesh.py:batch_sharding": "none: one program's arrays over a "
+    "device mesh; the port runs a process a device (core/distributed.py)",
+    "core/mesh.py:make_mesh": "none: one program's arrays over a device "
+    "mesh; the port runs a process a device (core/distributed.py)",
+    "core/mesh.py:point_sharding": "none: one program's arrays over a "
+    "device mesh; the port runs a process a device (core/distributed.py)",
+    "core/mesh.py:replicated": "none: one program's arrays over a device "
+    "mesh; the port runs a process a device (core/distributed.py)",
+    "core/mesh.py:shard_batch_pytree": "none: one program's arrays over a "
+    "device mesh; the port runs a process a device (core/distributed.py)",
+    "core/platform.py:enable_compile_cache": "none: XLA's program cache; "
+    "nvcc builds are kept by content hash, Triton keeps its own",
+    "core/platform.py:force_cpu_devices": "none: virtual XLA host devices "
+    "for a one-program mesh; the port's CPU workers need none",
+    "core/platform.py:honor_jax_platforms_env": "none: JAX_PLATFORMS; the "
+    "port's entry points take device= or --device",
+    "ops/layernorm.py:supports": "none: TPU gate (lane-friendly widths "
+    "within VMEM); K6 takes every width on the card",
+    "ops/layernorm.py:supports_fused": "none: TPU gate (lane-friendly "
+    "widths within VMEM); K7 takes every width on the card",
+    "sparse/pallas_conv.py:pallas_brick_conv3":
+        "-> kernels/brick_conv3.py:brick_conv3",
+    "sparse/pallas_pillar.py:dense_pillar_scene": "none: the JAX kernel "
+    "tests' scene maker; the port's tests take it from there",
+    "sparse/pallas_pillar.py:pallas_pillar_conv3":
+        "-> kernels/pillar_conv3.py:pillar_conv3",
+    "sparse/pallas_pillar.py:pillar_conv3_xla":
+        "-> kernels/pillar_conv3.py:pillar_conv3_plain",
+    "sparse/pallas_pillar.py:pillar_tile": "none: TPU gate (pillars per "
+    "grid step for a 128-row MXU pass); K2 picks its own tiles",
+    "teachers/convert.py:build_clip_variables":
+        "-> teachers/convert.py:build_clip_from",
+    "teachers/convert.py:rn_visual_params":
+        "-> teachers/convert.py:from_openai_state_dict",
+    "tools/export_model.py:build_serve_fn":
+        "-> tools/export_model.py:ServeProgram",
+}
+
+
+def _defined(path, public_defs_only):
+    """Top-level names of a module: its public defs and classes, or every
+    name it binds (defs, classes, assignments, imports)."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            if not (public_defs_only and node.name.startswith("_")):
+                out.add(node.name)
+        elif public_defs_only:
+            continue
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out |= {t.id for t in targets if isinstance(t, ast.Name)}
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            out |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return out
+
+
+def test_every_public_jax_name_has_a_counterpart():
+    """Each public top-level def or class of ``dropclip_tpu/X.py`` is a
+    name of ``dropclip_tpu_torch/X.py`` (defined, assigned or imported
+    there), or a row of ``NO_SAME_NAME``, whose counterparts exist in the
+    port; ROADMAP.md's name map has exactly those rows. The sources are
+    read with ``ast``: nothing is imported."""
+    import re
+
+    jax_root = os.path.join(ROOT, "dropclip_tpu")
+    port_root = os.path.join(ROOT, "dropclip_tpu_torch")
+    missing = set()
+    for d, _, names in os.walk(jax_root):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, n), jax_root)
+            port = os.path.join(port_root, rel)
+            have = _defined(port, False) if os.path.exists(port) else set()
+            missing |= {f"{rel}:{name}" for name in
+                        _defined(os.path.join(jax_root, rel), True) - have}
+    assert missing == set(NO_SAME_NAME), (
+        f"without a counterpart of the same name: "
+        f"{sorted(missing - set(NO_SAME_NAME))}; listed but present: "
+        f"{sorted(set(NO_SAME_NAME) - missing)}")
+    for key, entry in NO_SAME_NAME.items():
+        if entry.startswith("-> "):
+            rel, name = entry[3:].split(":")
+            assert name in _defined(os.path.join(port_root, rel), False), \
+                (key, entry)
+        else:
+            assert entry.startswith("none: "), (key, entry)
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        rows = dict(re.findall(r"^\| `([\w/]+\.py:\w+)` \| (.+?) \|$",
+                               f.read(), re.M))
+    assert rows == NO_SAME_NAME

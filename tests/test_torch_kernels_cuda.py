@@ -4,7 +4,7 @@ the card: K1 (``kernels/brick_conv3.py``, CUDA C++), K2
 (``ops/attention.py`` over ``csrc/attention.cu``, CUDA C++), and K6 and K7
 (``ops/layernorm.py``, Triton); and the raw-data slice's torch ops on the
 card against their CPU results (``grasp.rank_grasps_by_query``,
-``geom.knn.nearest_neighbor_device``).
+``geom.knn.nearest_neighbor_device``, ``geom.voxelize.sparse_quantize``).
 
 Marked ``cuda``: without a card every test skips. This file imports
 neither jax nor the JAX package, so it also runs on the card's machine,
@@ -1313,3 +1313,24 @@ def test_scanned_train_graph_matches_eager_steps(cuda, remat, dropout,
 
     monkeypatch.setattr(AmsgradChain, "update", frozen)
     assert _scanned_against_eager(cuda, remat, dropout)[2] > SCAN_GAP
+
+
+def test_sparse_quantize_on_card_equals_cpu(cuda):
+    """``geom.voxelize.sparse_quantize`` on CUDA tensors (batched, with
+    labels and a valid mask, past capacity in one scene) returns CUDA
+    tensors equal, field for field, to the CPU run: integer work only."""
+    from dropclip_tpu_torch.geom.voxelize import sparse_quantize
+
+    rng = np.random.RandomState(0)
+    xyz = torch.as_tensor(rng.rand(3, 4000, 3).astype(np.float32))
+    xyz[1] *= 4.0  # more voxels than the capacity
+    valid = torch.as_tensor(rng.rand(3, 4000) < 0.9)
+    labels = torch.as_tensor(rng.randint(0, 4, (3, 4000)).astype(np.int32))
+    ref = sparse_quantize(xyz, 0.1, 2048, valid=valid, labels=labels)
+    got = sparse_quantize(xyz.to(cuda), 0.1, 2048, valid=valid.to(cuda),
+                          labels=labels.to(cuda))
+    assert bool(ref.overflowed[1]) and not bool(ref.overflowed[0])
+    for name, r in ref._asdict().items():
+        g = getattr(got, name)
+        assert g.is_cuda and g.dtype == r.dtype, name
+        assert torch.equal(g.cpu(), r), name
