@@ -16,8 +16,10 @@ and fills), summed by name; they hold even when the host clock does not.
 A CPU run's trace has no device events: there the totals are the CPU
 ops' self times (each op's time less its child ops' on the same thread),
 as the JAX module falls back to host thunk times: a host-time ranking
-only. ``read_totals`` says which of the two it read.
-``tools/profile.py`` wraps this as a CLI over the hot surfaces.
+only. ``read_totals`` says which of the two it read. ``span_totals``
+reads the program's ``dropclip.*`` spans (``core/spans.py``): each
+name's count, wall and self time. ``tools/profile.py`` wraps this as a
+CLI over the hot surfaces.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 
 # device events of a torch.profiler Chrome trace
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_PREFIX = "dropclip."
 DEVICE_SOURCE = "CUDA kernels"
 HOST_SOURCE = "CPU ops' self time (the trace has no device events)"
 
@@ -101,6 +104,32 @@ def read_totals(logdir: str, device: Optional[int] = None
     return totals, DEVICE_SOURCE
 
 
+def span_totals(logdir: str) -> Dict[str, Tuple[int, float, float]]:
+    """Per ``dropclip.*`` span of the newest trace, by its name less the
+    prefix: (count, wall
+    seconds, self seconds). A span's self time is its wall less the union
+    of the spans that lie inside it, on any thread (a read on autograd's
+    thread lies inside the backward that waits for it)."""
+    spans = sorted(((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                     e["name"][len(SPAN_PREFIX):]) for e in _load_trace(logdir)
+                    if e.get("cat") == "user_annotation"
+                    and e["name"].startswith(SPAN_PREFIX)),
+                   key=lambda s: (s[0], -s[1]))
+    totals: Dict[str, Tuple[int, float, float]] = {}
+    for i, (s, e, name) in enumerate(spans):
+        covered, end = 0.0, s
+        for cs, ce, _ in spans[i + 1:]:
+            if cs > e:
+                break
+            if ce <= e and ce > end:
+                covered += ce - max(cs, end)
+                end = ce
+        n, wall, own = totals.get(name, (0, 0.0, 0.0))
+        totals[name] = (n + 1, wall + (e - s) / 1e6,
+                        own + (e - s - covered) / 1e6)
+    return totals
+
+
 def op_totals(logdir: str, device: Optional[int] = None) -> Dict[str, float]:
     """Summed seconds per op name from the newest trace (``read_totals``
     without the source)."""
@@ -132,6 +161,13 @@ def format_profile(logdir: str, top: int = 25,
                           key=lambda kv: -kv[1])[:top]:
         lines.append(f"  {s * 1e3:8.2f} ms  {100 * s / max(tot, 1e-12):5.1f}%"
                      f"  {stem[:90]}")
+    spans = span_totals(logdir)
+    if spans:
+        lines.append(f"\nspans ({SPAN_PREFIX}*): count, wall ms, self ms")
+        for name, (n, wall, own) in sorted(spans.items(),
+                                           key=lambda kv: -kv[1][1]):
+            lines.append(f"  {n:6d}  {wall * 1e3:9.2f}  {own * 1e3:9.2f}"
+                         f"  {name}")
     return "\n".join(lines)
 
 

@@ -32,6 +32,7 @@ import torch
 from ..core.distributed import (all_reduce_gradients, all_reduce_sum,
                                 all_reduce_sum_diff)
 from ..core.mesh import distributed, process_count
+from ..core.spans import span
 from ..sparse.bricks import build_brick_topology, grid_bits_for
 from ..sparse.topology import build_unet_topology
 from .loss import (aux_hinge_loss, cosine_distil_loss, cross_entropy_cls_loss,
@@ -212,15 +213,18 @@ def _gradients(cfg, model, batch: DistilBatch,
     """The step's forward and backward: the parameters' ``.grad`` set
     anew, and the step's metrics as device tensors. ``wgrad_rows``: the
     brick topology's static weight-gradient row bounds, or None."""
-    topo = build_topology(cfg, batch.coords, batch.mask, grid_bits)
+    with span("topology"):
+        topo = build_topology(cfg, batch.coords, batch.mask, grid_bits)
     if wgrad_rows is not None:
         topo = topo._replace(wgrad_rows=wgrad_rows)
     model.train()
     for p in model.parameters():
         p.grad = None
-    out = model(topo, batch.in_feats, generator=generator)
+    with span("student"):
+        out = model(topo, batch.in_feats, generator=generator)
     loss, metrics = _compute_losses(out, batch, cfg)
-    loss.backward()
+    with span("train.backward"):
+        loss.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["dropped_voxels"] = topology_dropped(topo)
     return metrics
@@ -237,6 +241,7 @@ def make_train_step(cfg, bounds: Optional[Tuple[int, Any]] = None):
     and row bounds, fixed as the scanned trainer fixes them."""
     grid_bits, wgrad_rows = bounds or (None, None)
 
+    @span("train.step")
     def train_step(state: DistilTrainState, batch: DistilBatch,
                    generator: Optional[torch.Generator] = None):
         model = state.model
@@ -246,7 +251,8 @@ def make_train_step(cfg, bounds: Optional[Tuple[int, Any]] = None):
             all_reduce_gradients(p for p in model.parameters()
                                  if p.grad is not None)
             metrics = _global_metrics(metrics)
-        metrics["grad_norm"] = state.apply_gradients()
+        with span("train.optimizer"):
+            metrics["grad_norm"] = state.apply_gradients()
         return state, metrics
 
     return train_step

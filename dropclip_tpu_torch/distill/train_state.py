@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from ..core.schedule import sgdr_tensor
+from ..core.spans import span
 
 OptState = Dict[str, Any]
 
@@ -103,7 +104,8 @@ class AmsgradChain:
         dev = grads[0].device
         step = count
         if step is None:
-            step = torch.tensor(opt_state["count"], device=dev)
+            with span("sync.count"):  # a copy from pageable host memory
+                step = torch.tensor(opt_state["count"], device=dev)
         lr = self.learning_rate(step)
         b1, b2 = self.b1, self.b2
         n = (step + 1).float()

@@ -39,6 +39,7 @@ import numpy as np
 
 import torch
 
+from ..core.spans import span
 from ..sparse.bricks import BrickLevel, brick_conv
 from . import count_launch
 from .nvcc import library
@@ -316,10 +317,14 @@ def brick_conv3_wgrad(feats: torch.Tensor, grad_out: torch.Tensor,
     bm, bx, by, bz, c = feats.shape
     cout = grad_out.shape[-1]
     if schedule is not None:
-        n = int(schedule[1]) if n_rows is None else n_rows
+        n = n_rows
+        if n is None:
+            with span("sync.wgrad_rows"):
+                n = int(schedule[1])
         rows = schedule[0][:n].long()
     else:
-        rows = occ.reshape(-1).nonzero()[:, 0]
+        with span("sync.wgrad_rows"):
+            rows = occ.reshape(-1).nonzero()[:, 0]
     n = rows.numel()
     src = tap_sources(nbr, (bx, by, bz), rows)
     x = torch.cat([feats.reshape(-1, c), feats.new_zeros((1, c))]).float()

@@ -30,6 +30,7 @@ import torch
 
 from .convert import student_state_dict
 from .core.device import resolve_device
+from .core.spans import span
 from .data.voxelize_np import sparse_quantize_np
 from .distill.engine import build_student_for, build_topology, \
     topology_dropped
@@ -154,14 +155,17 @@ class GroundingPipeline:
     def _forward(self, coords: np.ndarray, mask: np.ndarray,
                  in_feats: np.ndarray) -> torch.Tensor:
         """(B, M, ...) host arrays -> (B, M, C) features on the device."""
-        dev = self.device
-        coords_t = torch.as_tensor(coords, device=dev)
-        mask_t = torch.as_tensor(mask, device=dev)
-        topo = build_topology(self.cfg, coords_t, mask_t)
-        out = self.model(topo, torch.as_tensor(in_feats, device=dev))
+        coords_t = self._upload(coords)
+        mask_t = self._upload(mask)
+        with span("topology"):
+            topo = build_topology(self.cfg, coords_t, mask_t)
+        feats_t = self._upload(in_feats)
+        with span("student"):
+            out = self.model(topo, feats_t)
         out = out[0] if isinstance(out, tuple) else out
         self.forwards += 1
-        self.last_dropped = int(topology_dropped(topo))
+        with span("sync.dropped"):
+            self.last_dropped = int(topology_dropped(topo))
         if self.last_dropped:
             logging.getLogger("dropclip").warning(
                 "GroundingPipeline[%s]: %d voxels dropped (capacity or grid "
@@ -199,12 +203,19 @@ class GroundingPipeline:
                 self.last_dropped)
         return out
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device: a copy from pageable memory, which
+        waits for the stream on the card."""
+        with span("sync.upload"):
+            return torch.as_tensor(a, device=self.device)
+
     def featurize(self, xyz: np.ndarray, rgb: Optional[np.ndarray] = None
                   ) -> Tuple[torch.Tensor, np.ndarray, Any]:
         """(N, 3) points (+ optional (N, 3) colors in [0, 1]) -> (per-voxel
         features (cap, C) on the device, voxel validity (cap,), vox record
         with the inverse map back to input points)."""
-        vox, in_feats = self._host_voxelize(xyz, rgb)
+        with span("serve.voxelize"):
+            vox, in_feats = self._host_voxelize(xyz, rgb)
         if self.engine == "pillars":
             return self._forward_pillars(vox, in_feats), vox.mask, vox
         out = self._forward(vox.coords[None], vox.mask[None], in_feats[None])
@@ -241,6 +252,7 @@ class GroundingPipeline:
         out[:, valid] = masks[:, inv[valid]]
         return out
 
+    @span("serve.call")
     def ground_batch(self, clouds: Sequence[np.ndarray],
                      rgbs: Optional[Sequence[Optional[np.ndarray]]],
                      queries: Sequence[str],
@@ -258,30 +270,41 @@ class GroundingPipeline:
                 "engine serves per scene — call ground() per cloud")
         b = len(clouds)
         rgbs = rgbs if rgbs is not None else [None] * b
-        voxes, feats_in = zip(*[self._host_voxelize(x, r)
-                                for x, r in zip(clouds, rgbs)])
-        vmask = np.stack([v.mask for v in voxes])
-        out = self._forward(np.stack([v.coords for v in voxes]), vmask,
-                            np.stack(feats_in))
-        neg = self.clip_sim.encode_text(
-            negatives if negatives else NEGATIVE_PROMPT_GENERIC)
-        qpos = [self.clip_sim.encode_text([q])[0] for q in queries]
+        with span("serve.voxelize"):
+            voxes, feats_in = zip(*[self._host_voxelize(x, r)
+                                    for x, r in zip(clouds, rgbs)])
+            vmask = np.stack([v.mask for v in voxes])
+            coords, feats_in = np.stack([v.coords for v in voxes]), \
+                np.stack(feats_in)
+        out = self._forward(coords, vmask, feats_in)
+        with span("serve.text"):
+            neg = self.clip_sim.encode_text(
+                negatives if negatives else NEGATIVE_PROMPT_GENERIC)
+            qpos = [self.clip_sim.encode_text([q])[0] for q in queries]
         method, thr = self._settings(threshold)
-        vmask_t = torch.as_tensor(vmask, device=self.device)
-        masks, sims = [], []
-        for i in range(b):
-            per_q = [predict_from_embeddings(out[i], p, neg, mask=vmask_t[i],
-                                             method=method, threshold=thr)
-                     for p in qpos]
-            masks.append(torch.stack([m for m, _ in per_q]))
-            sims.append(torch.stack([s for _, s in per_q]))
-        masks = torch.stack(masks).cpu().numpy()
-        sims = torch.stack(sims).cpu().numpy()
+        vmask_t = self._upload(vmask)
+        with span("serve.ground"):
+            masks, sims = [], []
+            for i in range(b):
+                per_q = [predict_from_embeddings(
+                    out[i], p, neg, mask=vmask_t[i], method=method,
+                    threshold=thr) for p in qpos]
+                masks.append(torch.stack([m for m, _ in per_q]))
+                sims.append(torch.stack([s for _, s in per_q]))
+            masks, sims = torch.stack(masks), torch.stack(sims)
+        masks, sims = self._read_back(masks), self._read_back(sims)
         if not per_point:
             return masks, sims
-        return [self._to_points(masks[i], vox, len(queries))
-                for i, vox in enumerate(voxes)], sims
+        with span("serve.to_points"):
+            return [self._to_points(masks[i], vox, len(queries))
+                    for i, vox in enumerate(voxes)], sims
 
+    @staticmethod
+    def _read_back(t: torch.Tensor) -> np.ndarray:
+        with span("sync.readback"):
+            return t.cpu().numpy()
+
+    @span("serve.call")
     def ground(self, xyz: np.ndarray, rgb: Optional[np.ndarray],
                queries: Sequence[str],
                negatives: Optional[List[str]] = None,
@@ -292,15 +315,20 @@ class GroundingPipeline:
         sims (Q, cap) normalized similarity). Unassigned / overflow input
         points get mask False."""
         feats, vmask, vox = self.featurize(xyz, rgb)
-        neg = self.clip_sim.encode_text(
-            negatives if negatives else NEGATIVE_PROMPT_GENERIC)
+        with span("serve.text"):
+            neg = self.clip_sim.encode_text(
+                negatives if negatives else NEGATIVE_PROMPT_GENERIC)
+            qpos = [self.clip_sim.encode_text([q])[0] for q in queries]
         method, thr = self._settings(threshold)
-        vmask_t = torch.as_tensor(vmask, device=self.device)
-        per_q = [predict_from_embeddings(
-            feats, self.clip_sim.encode_text([q])[0], neg, mask=vmask_t,
-            method=method, threshold=thr) for q in queries]
-        masks = torch.stack([m for m, _ in per_q]).cpu().numpy()
-        sims = torch.stack([s for _, s in per_q]).cpu().numpy()
+        vmask_t = self._upload(vmask)
+        with span("serve.ground"):
+            per_q = [predict_from_embeddings(
+                feats, p, neg, mask=vmask_t, method=method, threshold=thr)
+                for p in qpos]
+            masks = torch.stack([m for m, _ in per_q])
+            sims = torch.stack([s for _, s in per_q])
+        masks, sims = self._read_back(masks), self._read_back(sims)
         if per_point:
-            return self._to_points(masks, vox, len(queries)), sims
+            with span("serve.to_points"):
+                return self._to_points(masks, vox, len(queries)), sims
         return masks, sims

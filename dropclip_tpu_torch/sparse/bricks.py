@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.spans import span
+
 DEFAULT_BRICK_SHAPE = (4, 4, 4)
 
 
@@ -287,9 +289,13 @@ def grid_bits_for(coords: torch.Tensor, mask: torch.Tensor,
     c = torch.where(mask.bool()[..., None], coords, 0)
     if c.numel() == 0:
         return floor
-    lo, hi = (int(v) for v in torch.aminmax(c))
-    span = max(-lo, hi + 1, 1)
-    return max(floor, (span - 1).bit_length() - 1)
+    lo, hi = torch.aminmax(c)
+    with span("sync.grid_bits"):
+        lo = int(lo)
+    with span("sync.grid_bits"):
+        hi = int(hi)
+    extent = max(-lo, hi + 1, 1)
+    return max(floor, (extent - 1).bit_length() - 1)
 
 
 def fold_topology(topo: BrickTopology) -> BrickTopology:

@@ -73,6 +73,14 @@ def test_pt2_round_trip_matches_live_program(exported):
         assert bool(want[0].any()) and int(want[0].sum()) < want[0].numel()
 
 
+def test_exported_graph_holds_no_profiler_op(exported):
+    """The serve program's trace records no span (``core/spans.py``) and
+    no other profiler op: the spans sit outside the traced functions."""
+    _, _, _, ep = exported
+    targets = [str(n.target) for n in ep.graph.nodes]
+    assert not [t for t in targets if "profiler" in t or "record" in t]
+
+
 def test_live_program_matches_jax_build_serve_fn(exported):
     """The port's live serve program against the JAX ``build_serve_fn``
     (jitted) on the same inputs, with the port student's weights handed
