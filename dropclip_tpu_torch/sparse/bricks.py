@@ -11,7 +11,11 @@ occupied bricks of shape (bx, by, bz) (powers of two >= 2):
   parent maps between pyramid levels;
 - stride-1 convs gather a halo around every brick and run the taps as
   matmuls; the k3 case is the plain version of the CUDA kernel
-  ``kernels/brick_conv3.py`` (K1), which serves every k3 conv on the card.
+  ``kernels/brick_conv3.py`` (K1), which serves every k3 conv on the card;
+- the k2s2 convs' and the points' row gathers, where autograd records
+  them, take backwards that read through the topology's inverse maps
+  (the group map and the parent map with its octants), not autograd's
+  sort-based backward of the indexing.
 
 The topology builder is batched natively (leading scene axis) where the
 JAX package vmaps; ``fold_topology`` then folds scenes into one brick
@@ -382,6 +386,8 @@ def gather_points(dense: torch.Tensor, row: torch.Tensor,
     zeros)."""
     bm, bx, by, bz, c = dense.shape
     bv = bx * by * bz
+    if _wants_grad(dense):
+        return _PointGather.apply(dense, row.long(), within.long())
     flat = torch.cat([dense.reshape(bm * bv, c), dense.new_zeros((1, c))])
     row, within = row.long(), within.long()
     src = torch.where(row < bm, row * bv + within, bm * bv)
@@ -453,17 +459,21 @@ def brick_conv(feats: torch.Tensor, level: BrickLevel, weights: torch.Tensor,
 
 
 def brick_down_conv(fine_feats: torch.Tensor, group_map: torch.Tensor,
-                    coarse: BrickLevel, weights: torch.Tensor) -> torch.Tensor:
+                    coarse: BrickLevel, weights: torch.Tensor,
+                    parent_map: torch.Tensor,
+                    octant: torch.Tensor) -> torch.Tensor:
     """k2s2 down conv, fine level -> coarse level.
 
     fine_feats (Bmf, bx,by,bz, Cin); group_map (Bmc, 8); weights (8, Cin,
-    Cout) in (0,1)^3 lexicographic order.
+    Cout) in (0,1)^3 lexicographic order; ``parent_map`` (Bmf,) and
+    ``octant`` (Bmf, 3), the group map's inverse, give the gather its
+    backward (``_GroupGather``).
     """
     _, bx, by, bz, cin = fine_feats.shape
     cout = weights.shape[-1]
     bmc = group_map.shape[0]
-    fz = torch.cat([fine_feats, fine_feats.new_zeros((1, bx, by, bz, cin))])
-    grp = fz[group_map.long()]  # (Bmc, 8, bx,by,bz, Cin)
+    # (Bmc, 8, bx,by,bz, Cin)
+    grp = _GroupGather.apply(fine_feats, group_map, parent_map, octant)
     grp = grp.reshape(bmc, 2, 2, 2, bx, by, bz, cin).permute(
         0, 1, 4, 2, 5, 3, 6, 7)  # (Bmc, 2, bx, 2, by, 2, bz, Cin)
     # stride-2 k2 conv: coarse voxel (X,Y,Z) reads fine (2X+i, 2Y+j, 2Z+k)
@@ -476,31 +486,174 @@ def brick_down_conv(fine_feats: torch.Tensor, group_map: torch.Tensor,
 
 def brick_up_conv(coarse_feats: torch.Tensor, parent_map: torch.Tensor,
                   octant: torch.Tensor, fine: BrickLevel,
-                  weights: torch.Tensor) -> torch.Tensor:
+                  weights: torch.Tensor,
+                  group_map: torch.Tensor) -> torch.Tensor:
     """Transposed k2s2, coarse level -> the encoder's fine level: fine
     voxel p takes W[p & 1] . coarse[p >> 1].
 
     coarse_feats (Bmc, bx,by,bz, Cin); parent_map (Bmf,); octant (Bmf, 3);
-    weights (8, Cin, Cout).
+    weights (8, Cin, Cout); ``group_map`` (Bmc, 8), the parent map's
+    inverse, gives the gather its backward where autograd records it
+    (``_OctantGather``).
     """
     bmc, bx, by, bz, cin = coarse_feats.shape
     cout = weights.shape[-1]
-    cz = torch.cat([coarse_feats,
-                    coarse_feats.new_zeros((1, bx, by, bz, cin))])
-    par = cz[torch.clamp(parent_map.long(), max=bmc)]  # (Bmf, bx,by,bz, C)
+    if _wants_grad(coarse_feats):
+        sub = _OctantGather.apply(coarse_feats, parent_map, octant,
+                                  group_map)
+    else:
+        cz = torch.cat([coarse_feats,
+                        coarse_feats.new_zeros((1, bx, by, bz, cin))])
+        par = cz[torch.clamp(parent_map.long(), max=bmc)]  # (Bmf, bx,by,bz, C)
 
-    # the fine brick's parents are the coarse voxels at [o*e/2, (o+1)*e/2)
-    # per axis; select on the small Cin tensor before upsampling
-    def pick(t, bit, axis):
-        half = t.shape[axis] // 2
-        lo, hi = t.narrow(axis, 0, half), t.narrow(axis, half, half)
-        return torch.where(bit.reshape((-1,) + (1,) * (t.dim() - 1)), hi, lo)
+        # the fine brick's parents are the coarse voxels at [o*e/2,
+        # (o+1)*e/2) per axis; select on the small Cin tensor before
+        # upsampling
+        def pick(t, bit, axis):
+            half = t.shape[axis] // 2
+            lo, hi = t.narrow(axis, 0, half), t.narrow(axis, half, half)
+            return torch.where(bit.reshape((-1,) + (1,) * (t.dim() - 1)),
+                               hi, lo)
 
-    sub = pick(par, octant[:, 0].bool(), 1)
-    sub = pick(sub, octant[:, 1].bool(), 2)
-    sub = pick(sub, octant[:, 2].bool(), 3)  # (Bmf, bx/2, by/2, bz/2, C)
+        sub = pick(par, octant[:, 0].bool(), 1)
+        sub = pick(sub, octant[:, 1].bool(), 2)
+        sub = pick(sub, octant[:, 2].bool(), 3)  # (Bmf, bx/2, by/2, bz/2, C)
 
     up = torch.einsum("bxyzc,kcd->bxyzkd", sub, weights.to(sub.dtype))
     up = up.reshape(-1, bx // 2, by // 2, bz // 2, 2, 2, 2, cout)
     up = up.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(-1, bx, by, bz, cout)
     return up * fine.occ[..., None].to(up.dtype)
+
+
+# ------------------------------------------------- gathers with a backward
+#
+# Each gather below reads a missing row as zeros. Autograd's backward of
+# the plain indexing (``index_put_`` with accumulate) sorts the indices
+# and sums each run of equal ones in one warp, so every miss of the
+# folded batch joins one serial run on the zero row, whose gradient is
+# thrown away. These backwards read each source row's gradient through
+# the topology's inverse map instead (a gather: no sort, nothing summed
+# on a shared row), from device tensors with no host read, so a CUDA
+# graph can capture them. The down conv's forward is the plain indexing
+# itself; the up conv's and the points' are taken only where autograd
+# records the gather (``_wants_grad``), the plain indexing otherwise.
+
+def _wants_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _rows_mask(hit: torch.Tensor, dim: int) -> torch.Tensor:
+    """(n,) bool -> (n, 1, ...) of ``dim`` dims: where a gathered row
+    is a miss, to be filled with zeros."""
+    return (~hit).reshape((-1,) + (1,) * (dim - 1))
+
+
+class _GroupGather(torch.autograd.Function):
+    """``brick_down_conv``'s gather: each coarse brick's 8 fine children,
+    (Bmc, 8, bx, by, bz, C), a miss of ``group_map`` reading zeros.
+
+    Backward: fine brick f takes the gradient at slot (parent_map[f],
+    oct(f)), oct in ``_offsets(2)`` order; a parent at or past the guard
+    (a padded fine brick, or one whose parent the coarse capacity cut)
+    reads zeros. ``parent_map`` and ``octant`` are the group map's
+    inverse on real bricks, so each fine brick fills at most one slot."""
+
+    @staticmethod
+    def forward(ctx, fine, group_map, parent_map, octant):
+        ctx.save_for_backward(parent_map, octant)
+        pad = fine.new_zeros((1,) + tuple(fine.shape[1:]))
+        return torch.cat([fine, pad])[group_map.long()]
+
+    @staticmethod
+    def backward(ctx, grad):
+        parent_map, octant = ctx.saved_tensors
+        with span("bricks.gather_backward"):
+            bmc = grad.shape[0]
+            parent = parent_map.long()
+            o = octant.long()
+            slot = (o[:, 0] * 4 + o[:, 1] * 2) + o[:, 2]
+            out = grad[parent.clamp(max=bmc - 1), slot]
+            out.masked_fill_(_rows_mask(parent < bmc, out.dim()), 0)
+        return out, None, None, None
+
+
+class _OctantGather(torch.autograd.Function):
+    """``brick_up_conv``'s gather: each fine brick's octant sub-block of
+    its parent, (Bmf, bx/2, by/2, bz/2, C), a parent miss reading zeros.
+
+    Backward: coarse brick c's sub-block k takes the gradient of its
+    child ``group_map[c, k]``, zeros where the child is a miss. Every
+    coarse voxel lies in one sub-block, which one child at most reads, so
+    it is a gather of the output's bytes."""
+
+    @staticmethod
+    def forward(ctx, coarse, parent_map, octant, group_map):
+        ctx.save_for_backward(group_map)
+        bmc, bx, by, bz, _ = coarse.shape
+        parent = parent_map.long()
+        o = octant.long()
+        dev = coarse.device
+
+        def along(axis, ext):
+            # the sub-block's coordinates on one axis, (Bmf, ..ext..)
+            shape = [-1, 1, 1, 1]
+            shape[axis + 1] = ext
+            r = torch.arange(ext, device=dev)
+            return (o[:, axis, None] * ext + r).reshape(shape)
+
+        sub = coarse[parent.clamp(max=bmc - 1).reshape(-1, 1, 1, 1),
+                     along(0, bx // 2), along(1, by // 2), along(2, bz // 2)]
+        sub.masked_fill_(_rows_mask(parent < bmc, sub.dim()), 0)
+        return sub
+
+    @staticmethod
+    def backward(ctx, grad):
+        (group_map,) = ctx.saved_tensors
+        with span("bricks.gather_backward"):
+            bmf, hx, hy, hz, c = grad.shape
+            bmc = group_map.shape[0]
+            child = group_map.long().reshape(bmc, 2, 1, 2, 1, 2, 1)
+            dev = grad.device
+            x = torch.arange(hx, device=dev).reshape(1, 1, hx, 1, 1, 1, 1)
+            y = torch.arange(hy, device=dev).reshape(1, 1, 1, 1, hy, 1, 1)
+            z = torch.arange(hz, device=dev).reshape(1, 1, 1, 1, 1, 1, hz)
+            # (Bmc, 2, hx, 2, hy, 2, hz, C): sub-block k = (ox, oy, oz)
+            # of the coarse brick is child k's gradient
+            out = grad[child.clamp(max=bmf - 1), x, y, z]
+            out.masked_fill_((child >= bmf)[..., None], 0)
+        return out.reshape(bmc, 2 * hx, 2 * hy, 2 * hz, c), None, None, None
+
+
+class _PointGather(torch.autograd.Function):
+    """``gather_points``' gather: (Bm, bx, by, bz, C) -> (M, C) at each
+    point's voxel slot, a point whose row is a miss (a padded point)
+    reading zeros.
+
+    Backward: each point's gradient added onto its slot (``index_add_``,
+    no sort), exact where two points share a slot. A padded point adds
+    onto a spare row of its own past the slots, dropped after, so no
+    row sums a run of them."""
+
+    @staticmethod
+    def forward(ctx, dense, row, within):
+        ctx.save_for_backward(row, within)
+        ctx.shape = dense.shape
+        bm, bx, by, bz, c = dense.shape
+        bv = bx * by * bz
+        hit = row < bm
+        out = dense.reshape(bm * bv, c)[
+            torch.where(hit, row * bv + within, 0)]
+        out.masked_fill_(_rows_mask(hit, 2), 0)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        row, within = ctx.saved_tensors
+        with span("bricks.gather_backward"):
+            bm, bx, by, bz, c = ctx.shape
+            bv = bx * by * bz
+            n, m = bm * bv, grad.shape[0]
+            spare = n + torch.arange(m, device=grad.device)
+            dst = torch.where(row < bm, row * bv + within, spare)
+            out = grad.new_zeros((n + m, c)).index_add_(0, dst, grad)
+        return out[:n].reshape(ctx.shape), None, None

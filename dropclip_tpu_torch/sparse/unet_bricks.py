@@ -13,8 +13,10 @@ their moments over the ranks (the JAX ``_auto_fold`` fault, folding a
 batch sharded across devices, has no counterpart here). Every k3 conv
 goes through ``kernels.brick_conv3.BrickConv3Fn`` (K1 on CUDA tensors for
 the forward and the input gradient, the plain version on CPU); the k5
-stem and the k2s2 down/up convs are plain torch ops under native
-autograd, as they were XLA ops outside any kernel in the JAX package.
+stem and the k2s2 down/up convs are plain torch ops, as they were XLA
+ops outside any kernel in the JAX package, under native autograd but for
+the row gathers of the down and up convs and of the points, whose
+backwards read through the topology's inverse maps (``bricks``).
 
 Training mode (``model.train()``) takes batch statistics in the masked
 batch norms, applies dropout after each stage (``dropout_rate``, drawn
@@ -69,18 +71,18 @@ class BConvDown(ConvKernel):
     def __init__(self, cin: int, cout: int):
         super().__init__(8, cin, cout)
 
-    def forward(self, x, group_map, coarse_level):
+    def forward(self, x, group_map, coarse_level, parent_map, octant):
         return brick_down_conv(x, group_map, coarse_level,
-                               self.kernel.to(x.dtype))
+                               self.kernel.to(x.dtype), parent_map, octant)
 
 
 class BConvUp(ConvKernel):
     def __init__(self, cin: int, cout: int):
         super().__init__(8, cin, cout)
 
-    def forward(self, x, parent_map, octant, fine_level):
+    def forward(self, x, parent_map, octant, fine_level, group_map):
         return brick_up_conv(x, parent_map, octant, fine_level,
-                             self.kernel.to(x.dtype))
+                             self.kernel.to(x.dtype), group_map)
 
 
 class BConv1x1(ConvKernel):
@@ -256,7 +258,8 @@ class MinkUNetBricks(nn.Module):
         skips, out = [], out_p1
         for s in range(4):
             out = self._call(getattr(self, f"conv{s + 1}"), out,
-                             topo.group_maps[s], lv[s + 1])
+                             topo.group_maps[s], lv[s + 1],
+                             topo.parent_maps[s], topo.octants[s])
             out = F.relu(getattr(self, f"bn{s + 1}")(out, lv[s + 1].occ))
             out = self._dropout(self._stage(f"block{s + 1}", out, lv[s + 1],
                                             sched[s + 1], self.layers[s]),
@@ -268,7 +271,7 @@ class MinkUNetBricks(nn.Module):
             lvl = 3 - d
             out = self._call(getattr(self, f"convtr{4 + d}"), out,
                              topo.parent_maps[lvl], topo.octants[lvl],
-                             lv[lvl])
+                             lv[lvl], topo.group_maps[lvl])
             out = F.relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].occ))
             out = torch.cat([out, skip_feats[d]], dim=-1)
             out = self._dropout(self._stage(f"block{5 + d}", out, lv[lvl],

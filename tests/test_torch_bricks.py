@@ -187,7 +187,8 @@ def test_stem_down_up_convs_match_jax():
     ref = np.asarray(jb.brick_down_conv(jnp.asarray(x1), jf.group_maps[0],
                                         jf.levels[1], jnp.asarray(wd)))
     got = tb.brick_down_conv(torch.as_tensor(x1), tf.group_maps[0],
-                             tf.levels[1], torch.as_tensor(wd)).numpy()
+                             tf.levels[1], torch.as_tensor(wd),
+                             tf.parent_maps[0], tf.octants[0]).numpy()
     np.testing.assert_allclose(got, ref, **tol(ref))
 
     x2 = _rand_feats(rng, tf.levels[1].occ, 12)
@@ -197,8 +198,72 @@ def test_stem_down_up_convs_match_jax():
                                       jnp.asarray(wu)))
     got = tb.brick_up_conv(torch.as_tensor(x2), tf.parent_maps[0],
                            tf.octants[0], tf.levels[0],
-                           torch.as_tensor(wu)).numpy()
+                           torch.as_tensor(wu), tf.group_maps[0]).numpy()
     np.testing.assert_allclose(got, ref, **tol(ref))
+
+
+@pytest.mark.parametrize("gather", ["down", "up", "points"])
+@pytest.mark.parametrize("dropped", [False, True], ids=["padded", "dropped"])
+@pytest.mark.parametrize("bshape", [(2, 2, 2), (4, 4, 2)], ids=str)
+def test_gather_input_gradients_match_jax(bshape, dropped, gather):
+    """The down conv's, the up conv's and the points' gathers: the input
+    gradient through the inverse maps == jax.vjp of the JAX op on the
+    same inputs and cotangent, at every level of a folded topology with
+    padded points, and with two thirds of each level's bricks kept (f32,
+    rtol 1e-5, atol 1e-5 * max|ref|)."""
+    coords, mask = _scenes(11, capacity=256, n_occ=160, ext=8)
+    assert not mask.all()
+    if dropped:
+        worst = tb.autotune_brick_capacities(coords, mask, slack=1.0,
+                                             multiple=1, floor=1,
+                                             brick_shape=bshape)
+        caps = tuple(max(c * 2 // 3, 1) for c in worst)
+    else:
+        caps = tb.autotune_brick_capacities(coords, mask, brick_shape=bshape)
+    jt, tt = _topos(coords, mask, caps, bshape)
+    assert (int(tt.dropped[:, 1:].sum()) > 0) == dropped
+    jf, tf = jb.fold_topology(jt), tb.fold_topology(tt)
+    rng = np.random.RandomState(12)
+    if gather == "points":
+        cases = [(tf.levels[0].occ, None, jb.gather_points,
+                  (jf.point_row, jf.point_within), tb.gather_points,
+                  (tf.point_row, tf.point_within))]
+    else:
+        cases = []
+        for l in range(len(tf.levels) - 1):
+            w = rng.randn(8, 3, 4).astype(np.float32)
+            if gather == "down":
+                cases.append((tf.levels[l].occ, w, jb.brick_down_conv,
+                              (jf.group_maps[l], jf.levels[l + 1]),
+                              tb.brick_down_conv,
+                              (tf.group_maps[l], tf.levels[l + 1])))
+            else:
+                cases.append((tf.levels[l + 1].occ, w, jb.brick_up_conv,
+                              (jf.parent_maps[l], jf.octants[l],
+                               jf.levels[l]),
+                              tb.brick_up_conv,
+                              (tf.parent_maps[l], tf.octants[l],
+                               tf.levels[l])))
+    for l, (occ, w, jfn, jargs, tfn, targs) in enumerate(cases):
+        x = rng.randn(*tuple(occ.shape), 3).astype(np.float32)
+        wargs = () if w is None else (w,)
+        out, vjp = jax.vjp(lambda a: jfn(a, *jargs, *map(jnp.asarray, wargs)),
+                           jnp.asarray(x))
+        g = rng.randn(*out.shape).astype(np.float32)
+        (ref,) = vjp(jnp.asarray(g))
+        ref = np.asarray(ref)
+        xt = torch.as_tensor(x).requires_grad_()
+        inverse = {"down": (tf.parent_maps[l], tf.octants[l]),
+                   "up": (tf.group_maps[l],), "points": ()}[gather]
+        got = tfn(xt, *targs, *map(torch.as_tensor, wargs), *inverse)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                                   rtol=1e-5,
+                                   atol=1e-5 * np.abs(np.asarray(out)).max())
+        (gt,) = torch.autograd.grad(got, xt, torch.as_tensor(g))
+        assert np.abs(ref).max() > 0
+        np.testing.assert_allclose(gt.numpy(), ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max(),
+                                   err_msg=f"{gather} level {l}")
 
 
 def test_scatter_gather_halo_match_jax():

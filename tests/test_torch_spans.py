@@ -169,6 +169,17 @@ def test_train_step_records_its_spans_and_reads():
             assert back[1] <= s and e <= back[2]
 
 
+def test_train_step_holds_one_gather_backward_span_per_gather():
+    """The brick engine's gathers (4 down convs, 4 up convs, the points)
+    each run one backward span, inside ``train.backward``."""
+    state, step, batch = make_trainer()
+    _, found = recorded(lambda: step(state, batch))
+    back = [s for s in found if s[0] == "train.backward"][0]
+    gathers = [s for s in found if s[0] == "bricks.gather_backward"]
+    assert len(gathers) == 9
+    assert all(back[1] <= s and e <= back[2] for _, s, e in gathers)
+
+
 def test_outputs_equal_with_and_without_a_session(pipe):
     off = call_batch(pipe)
     on, _ = recorded(lambda: call_batch(pipe))
