@@ -19,9 +19,18 @@ def fake_run(trace_on):
     run.check("a", 0.5)
     run.check("b", 0.0)
     if trace_on:
+        # one train step (the root span) with one span of each layer the
+        # span readers take, so that every per-layer metric finds its unit
         run.probe = trace.Probe([("k_brick_conv3", 0.0, 5.0),
                                  ("other", 10.0, 5.0)],
-                                [("aten::item", 4.0, 7.0)], 0.0, 20.0, [0])
+                                [("aten::item", 4.0, 7.0),
+                                 ("dropclip.train.step", 0.0, 20.0),
+                                 ("dropclip.topology", 1.0, 2.0),
+                                 ("dropclip.bricks.gather_backward", 6.0,
+                                  1.0),
+                                 ("dropclip.sync.count", 11.0, 1.0),
+                                 ("dropclip.train.optimizer", 16.0, 2.0)],
+                                0.0, 20.0, [0])
         run.work.update(window_flops=1e9, window_s=1.0, k1_flops=1e8,
                         k1_bytes=1e6, dtype="float32")
     return spec, run
