@@ -8,17 +8,19 @@
    ``build/kernels/`` (K1 ``csrc/brick_conv3.cu``; K2
    ``csrc/pillar_conv3.cu``; K3, K4 and K5 ``csrc/attention.cu``) and the
    Triton kernels K6 and K7 by a first launch; prints ptxas' registers
-   and spills per entry function (attention v3 and the float32 wgmma
-   kernel must not spill);
+   and spills per entry function (attention v3, d80 and the float32
+   wgmma kernel must not spill);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes its paths give it (K1: the 16 k3 convs of MinkUNet14D at batch 8
    in float32 with TF32 off and in bf16, both timed against halo gather +
    cuDNN ``conv3d`` in the same dtype and a tensor-core bound, 3xTF32 for
    float32; K6: the text tower's (Q*77, 768)
    rows and the ViT-L teacher's (96*769, 1024) and (96, 1024) rows; K3 and
-   K4: the teacher's (96, 769, 16, 64) bf16; K5: the hi-res patch
-   extract's (8, 3073, 16, 64) bf16, with DINO v1 hi-res, causal T=77 and
-   the float32 instance (3xTF32, bound at the TF32 rate) as extra rows;
+   K4: the teacher's (96, 769, 16, 64) bf16, and K4 at OpenCLIP
+   ViT-H/14's (96, 337, 16, 80) bf16 on the d80 instance; K5: the hi-res
+   patch extract's (8, 3073, 16, 64) bf16, with DINO v1 hi-res, causal
+   T=77 and the float32 instance (3xTF32, bound at the TF32 rate) as extra
+   rows;
    K7: the teacher's (96*769, 1024)
    bf16 rows), and times kernel, plain version, a library yardstick the
    port never calls, and the card's bound; the attention limit is checked
@@ -99,7 +101,8 @@
    out), ``dino_extract.main --family dino_v1`` on two frames (cv2's
    resize replaced by nearest-pixel sampling where cv2 is absent); K6
    and K7 at the teachers' rows and eps (float32 (3026, 384) and (16130,
-   384), DINOv2's 8 x 3073 rows of 1024 in both types) against their
+   384), DINOv2's 8 x 3073 rows of 1024 in both types, OpenCLIP
+   ViT-H/14's 96 x 337 rows of 1280 in bf16) against their
    plain versions with a planted fault each, timed, and split into device
    time (profiler) and host time per call beside ``F.layer_norm``'s; the
    float32 K5 rows also read kernel and plain version against float64;
@@ -1274,6 +1277,11 @@ ATTN_DESIGNS = {"v3": "v3 wgmma, stage C(i) and the softmax cut: S = Q.K^T "
                       "(SS) and O += P.V (RS) on wgmma.m64n64k16, n16 last "
                       "key tile, one fma into ex2.approx.ftz per "
                       "probability, cp.async double buffer",
+                "d80": "d80 wgmma at D = 80: S = Q.K^T (SS) on "
+                       "m64n64k16 over five k-steps, O += P.V (RS) on "
+                       "m64n80k16, no-swizzle core-matrix tiles read in "
+                       "place (K-major Q, K; MN-major V), two warpgroups a "
+                       "block sharing a two-stage K/V ring",
                 "f32x3": "f32x3 3xTF32, at D = 64 on wgmma.m64n64k8.tf32: "
                          "Q and P split in registers (RS), K and V^T split "
                          "once per block into hi and lo 128B-swizzled tiles "
@@ -1326,8 +1334,8 @@ def dropped_key_control(q, k, v, causal):
     return (p @ vf).to(q.dtype).permute(0, 2, 1, 3)
 
 
-def attention_row(tag, b, t, h, causal, dtype, f32_control=False):
-    """One attention shape (B, T, H, 64) against its plain version on
+def attention_row(tag, b, t, h, causal, dtype, f32_control=False, d=64):
+    """One attention shape (B, T, H, D) against its plain version on
     three seeds (bf16; one in float32), timed with the plain version, SDPA
     and the bound (``tc_bound``: float32 at 3xTF32). bf16 must stay within
     ATTN_ULPS of max|ref| and the dropped-key control above it; float32
@@ -1342,10 +1350,10 @@ def attention_row(tag, b, t, h, causal, dtype, f32_control=False):
     errs = []
     for seed in range(3 if dtype == torch.bfloat16 else 1):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + seed)
-        q, k, v = (torch.randn((b, t, h, 64), generator=gen,
+        q, k, v = (torch.randn((b, t, h, d), generator=gen,
                                device="cuda").to(dtype) for _ in range(3))
         if tag.startswith("K3"):
-            args = [x.reshape(b, t, h * 64) for x in (q, k, v)]
+            args = [x.reshape(b, t, h * d) for x in (q, k, v)]
             kern = lambda: att.oneshot_attention_packed(*args, h)
             plain = lambda: att.oneshot_attention_packed_plain(*args, h)
         elif tag.startswith("K4"):
@@ -1403,16 +1411,16 @@ def attention_row(tag, b, t, h, causal, dtype, f32_control=False):
                                                       is_causal=causal)
     # work the data needs: causal keeps t(t+1)/2 of the t^2 pairs
     pairs = t * (t + 1) / 2 if causal else t * t
-    flops = 4.0 * b * h * pairs * 64
-    nbytes = 4.0 * b * t * h * 64 * q.element_size()
+    flops = 4.0 * b * h * pairs * d
+    nbytes = 4.0 * b * t * h * d * q.element_size()
     bound, by_what = tc_bound(flops, nbytes, dtype)
-    row = dict(b=b, t=t, h=h, d=64, causal=causal, dtype=str(dtype),
+    row = dict(b=b, t=t, h=h, d=d, causal=causal, dtype=str(dtype),
                max_abs_err=max(e["max_abs_err"] for e in errs),
                max_err_bf16_ulps=worst, seeds=errs,
                ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3),
                library_ms=cuda_ms(library, 10), bound_ms=bound,
                bound_by=by_what, gflop=flops / 1e9,
-               design=ATTN_DESIGNS[instance(dtype, 64)])
+               design=ATTN_DESIGNS[instance(dtype, d)])
     if dtype == torch.float32:
         # the CUDA cores' float32 rate, for reference
         row["bound_f32_cores_ms"] = max(flops / PEAK_FLOPS[dtype],
@@ -1424,7 +1432,7 @@ def attention_row(tag, b, t, h, causal, dtype, f32_control=False):
                                          else ctrl_ulps)
     row["tflops"] = flops / row["ms"] / 1e9
     row["bound_share"] = bound / row["ms"]
-    print(f"{tag} (B={b}, T={t}, H={h}, D=64{', causal' if causal else ''}"
+    print(f"{tag} (B={b}, T={t}, H={h}, D={d}{', causal' if causal else ''}"
           f", {dtype}): err {row['max_abs_err']:.3e} ({worst:.2f} bf16 "
           f"ulps) | kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
           f"TFLOP/s, {row['bound_share']:.3f} of the bound) plain "
@@ -1438,7 +1446,9 @@ def attention_row(tag, b, t, h, causal, dtype, f32_control=False):
 def attention_phase(report):
     """K3, K4 and K5 against their plain versions at the shapes the ingest
     path gives them: K3 and K4 at the ViT-L teacher's (96, 769, 16, 64),
-    K5 at the hi-res patch extract's (8, 3073, 16, 64), all bf16; extra
+    K4 at OpenCLIP ViT-H/14's (96, 337, 16, 80) on the d80 instance (where
+    ``supports_packed`` routes its heads), K5 at the hi-res patch
+    extract's (8, 3073, 16, 64), all bf16; extra
     rows: K5 at DINO v1 hi-res (T=3026, 6 heads) and causal at T=77, and
     the float32 instance at (8, 769, 16, 64). Each bf16 case runs on three
     seeds and must stay within ATTN_ULPS bf16 ulp of max|ref|: the two
@@ -1465,6 +1475,7 @@ def attention_phase(report):
 
     cases = [("K3", 96, 769, 16, False, torch.bfloat16),
              ("K4", 96, 769, 16, False, torch.bfloat16),
+             ("K4 d80", 96, 337, 16, False, torch.bfloat16, False, 80),
              ("K5", 8, 3073, 16, False, torch.bfloat16),
              ("K5 DINO", 1, 3026, 6, False, torch.bfloat16),
              ("K5 causal", 32, 77, 12, True, torch.bfloat16),
@@ -1476,7 +1487,10 @@ def attention_phase(report):
     att.flash_attention_padded.launches = 0
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "design", "tflops")
-    return {tag: {k: out[tag][k] for k in keys} for tag in ("K3", "K4", "K5")}
+    rows = {tag: {k: out[tag][k] for k in keys} for tag in ("K3", "K4", "K5")}
+    rows["K4"]["d80"] = {k: out["K4 d80"][k] for k in keys + ("b", "t", "h",
+                                                               "d")}
+    return rows
 
 
 def k7_phase(report):
@@ -5209,10 +5223,13 @@ def teacher_norm_phase(report):
     tower on 4 prompts, (4 x 77, 512) (eps 1e-5, the same instance in
     bf16, within one unfloored bf16 ulp), DINOv2-L's first norm (bf16)
     and final norm (float32) and its K7 residual stream (bf16) over
-    8 x 3073 rows at 672x896 (eps 1e-6). Each against its plain version on
-    the same card tensors with a planted fault that the rule must see
-    (statistics over the padded block at width 384, a neighbour row's
-    statistics at 512 and 1024), timed with the plain version,
+    8 x 3073 rows at 672x896 (eps 1e-6), and OpenCLIP ViT-H/14's K6 and K7
+    rows over a 96-crop chunk, (96 x 337, 1280) bf16 (eps 1e-5; 1280 is no
+    power of two, so the block is padded to 2048 lanes). Each against its
+    plain version on the same card tensors with a planted fault that the
+    rule must see (K6: statistics over the padded block at widths 384 and
+    1280, a neighbour row's statistics at 512 and 1024; K7: a neighbour
+    row's statistics), timed with the plain version,
     ``F.layer_norm`` and the bound:
     back to back between CUDA events (``cuda_ms``, the larger of the host
     and the device time per call) and split into device time
@@ -5234,7 +5251,9 @@ def teacher_norm_phase(report):
               big),
              ("K7 DINOv2 672x896 bf16", 8 * 3073, 1024, torch.bfloat16, 1e-6,
               big),
-             ("K6 RN50 text bf16", 4 * 77, 512, torch.bfloat16, 1e-5, 1e-30))
+             ("K6 RN50 text bf16", 4 * 77, 512, torch.bfloat16, 1e-5, 1e-30),
+             ("K6 ViT-H/14 bf16", 96 * 337, 1280, torch.bfloat16, 1e-5, big),
+             ("K7 ViT-H/14 bf16", 96 * 337, 1280, torch.bfloat16, 1e-5, big))
     rows = {}
     for tag, n, c, dtype, eps, floor in cases:
         x = (torch.randn((n, c), generator=gen, device="cuda") * 3
@@ -5942,7 +5961,8 @@ def main():
         for line in log.splitlines():  # ptxas' notes on wgmma, if any
             if "GMMA" in line or "wgmma" in line:
                 print(f"  ptxas {name}: {line.strip()[:160]}", flush=True)
-    for name in ("attention_kernel_v3", "attention_kernel_f32x3_wgmma"):
+    for name in ("attention_kernel_v3", "attention_kernel_d80",
+                 "attention_kernel_f32x3_wgmma"):
         found = [lines for fn, lines in ptxas_entries(
             ptxas["attention"]).items() if name in fn]
         check(len(found) == 1 and any(

@@ -12,10 +12,11 @@
 // starts at element (b*T + t)*H*D + h*D. The TPU needed two kernels only
 // because of the transposes XLA put around the per-head one.
 //
-// Three instances, chosen by the wrapper (kernels/attention.py) from the
-// type and the head dim: v3 (bf16, D = 64, every bf16 shape the port's
-// paths run), v2 (bf16, D = 16 and 32) and f32x3 (float32, D = 16, 32 and
-// 64: DINO v1's teacher and `build_clip`'s default dtype).
+// Four instances, chosen by the wrapper (kernels/attention.py) from the
+// type and the head dim: v3 (bf16, D = 64, the head dim of the OpenAI CLIP
+// and DINO towers), d80 (bf16, D = 80: OpenCLIP ViT-H/14), v2 (bf16, D = 16
+// and 32) and f32x3 (float32, D = 16, 32 and 64: DINO v1's teacher and
+// `build_clip`'s default dtype).
 //
 // Numerics, the same in all three and those of the TPU body: logits
 // s = q.k in float32, then exp2(s * scale*log2(e) - m) with keys past T
@@ -633,6 +634,274 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- d80: the bf16 instance at D = 80, on wgmma ---------------------------
+//
+// OpenCLIP ViT-H/14's heads (16 of 80 at width 1280). A row of 80 bf16 is
+// 160 bytes, which no swizzle atom divides (128-byte rows for the 128-byte
+// swizzle), so the tiles take wgmma's no-swizzle ("interleave") canonical
+// layout: 8 rows x 16 bytes make one core matrix of 128 contiguous bytes
+// (conflict-free for the tensor cores), the ten core matrices of 8 rows
+// lie one after another (1280 bytes), and the 8-row groups follow. Chunk i
+// of a tile (row 8 (i / 80) + i % 8, 16-byte chunk (i / 8) % 10) lies at
+// byte 16 i, so the cp.async stage writes each tile contiguously, and a
+// warp reads 64 bytes of each of 8 rows: whole 32-byte sectors. The same
+// layout is K-major for Q and K (S = Q K^T: five k-steps of 16 dims, LBO
+// the next 8 dims' core matrix, SBO the next 8 rows) and MN-major for V
+// (O += P V at N = 80: SBO the next 8 dims, LBO the next 8 keys), so V is
+// read as it lies, as in v3. The tensors are read in place: padding them
+// to D = 128 in device memory would add 60% to the bytes of a launch that
+// is bound by them.
+//
+// Bound. At ViT-H/14's ingest shape (B = 96 crops, T = 337, H = 16) one
+// launch does 4 B H T^2 D = 55.8 GFLOP and moves 4 B T H D 2 = 331 MB:
+// 0.056 ms at 989 TFLOP/s against 0.099 ms at 3.35 TB/s, so bytes bound
+// it. A block is two warpgroups, each on 64 query rows, that share every
+// K and V tile, so a (batch, head) reads its K and V from L2 once for 128
+// query rows; a ragged last key tile runs at n16 or n32. Otherwise v3's
+// design: the online softmax on the S accumulators in registers, P the
+// register A operand of P V, a two-stage cp.async ring, one barrier a
+// tile. 98 registers, 61 KB of shared memory: two blocks an SM. Measured
+// at (96, 337, 16, 80) and not kept (PERF.md, Findings): one warpgroup a
+// block 0.50 ms, three 0.36-0.37 ms, a 3- or 4-stage ring 0.334-0.335 ms,
+// three blocks an SM (80 registers, 420 bytes spilled) 0.73 ms, against
+// 0.329 ms here.
+
+constexpr int kD80 = 80;
+constexpr int kD80Tile = 64 * kD80 * 2;  // one 64-row tile: 10240 bytes
+constexpr int kD80Warpgroups = 2;        // a block's 64-row query tiles
+// the descriptors' byte offsets: K-major Q and K (LBO the next 8 dims, SBO
+// the next 8 rows), MN-major V (LBO the next 8 keys, SBO the next 8 dims)
+constexpr uint32_t kD80KLbo = 128, kD80KSbo = 1280;
+constexpr uint32_t kD80VLbo = 1280, kD80VSbo = 128;
+
+// Shared-memory matrix descriptor of a no-swizzle tile: start address and
+// the leading and stride byte offsets, in 16-byte units (layout type 0).
+__device__ __forceinline__ uint64_t plain_desc(const void* tile, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ uint8_t* align128(uint8_t* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 127) & ~127u) - a);
+}
+
+// d (64 x 32) += A (64 x 16) B (16 x 32), both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+// d (64 x 80, f32) += A (64 x 16, registers: the mma.sync m16n8k16 A
+// fragment of the warp's 16 rows) B (16 x 80, MN-major in shared memory);
+// d[4j + e] is row g + 8 (e / 2), column 8j + 2 tg + e % 2
+__device__ __forceinline__ void wgmma_rs_n80_mn(float (&d)[40],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+// One key tile of d80 for one warpgroup, as v3_tile: NB 8-key slices (8
+// for a full tile, 4 for a last tile of at most 32 keys, 2 for one of at
+// most 16), the keys past T in it masked.
+template <int NB>
+__device__ __forceinline__ void d80_tile(float (&acc)[40], float (&m_run)[2],
+                                         float (&l_run)[2], uint64_t dq,
+                                         uint64_t dk, uint64_t dv, int k0,
+                                         int q0, const int (&row_q)[2],
+                                         int tg, int T, float scale_log2,
+                                         int causal) {
+  // S = Q K^T: five k-steps of 16 dims, two core matrices (256 bytes) each
+  float s[4 * NB];
+#pragma unroll
+  for (int i = 0; i < 4 * NB; ++i) s[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD80 / 16; ++kk)
+    wgmma_ss(s, dq + 16 * kk, dk + 16 * kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+
+  const bool full = k0 + 8 * NB <= T && (!causal || k0 + 8 * NB - 1 <= q0);
+  float m_tile[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < 4 * NB; ++i) {
+    const int ri = (i >> 1) & 1;
+    if (!full) {
+      const int key = k0 + (i >> 2) * 8 + tg * 2 + (i & 1);
+      if (key >= T || (causal && key > row_q[ri])) s[i] = -CUDART_INF_F;
+    }
+    m_tile[ri] = fmaxf(m_tile[ri], s[i]);
+  }
+  float alpha[2], m_use[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    m_tile[ri] = fmaxf(m_tile[ri], __shfl_xor_sync(0xffffffff, m_tile[ri], 1));
+    m_tile[ri] = fmaxf(m_tile[ri], __shfl_xor_sync(0xffffffff, m_tile[ri], 2));
+    const float m_new = fmaxf(m_run[ri], m_tile[ri] * scale_log2);
+    m_use[ri] = m_new == -CUDART_INF_F ? 0.f : m_new;
+    alpha[ri] = ex2(m_run[ri] - m_use[ri]);
+    m_run[ri] = m_new;
+    l_run[ri] *= alpha[ri];
+  }
+  if (__any_sync(0xffffffff, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < 40; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * NB; ++i) {
+    const float p = ex2(fmaf(s[i], scale_log2, -m_use[(i >> 1) & 1]));
+    s[i] = p;
+    l_run[(i >> 1) & 1] += p;
+  }
+
+  // O += P V: key step kk starts two 8-key groups (2560 bytes) on
+  uint32_t pa[NB / 2][4];
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) wgmma_rs_n80_mn(acc, pa[kk], dv + 160 * kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(acc);
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) reg_fence(pa[kk]);
+}
+
+// d80: two warpgroups per (batch, head, 128-row query tile); warpgroup w
+// takes rows 64 w..64 w + 63 of the tile.
+__global__ void __launch_bounds__(kThreads * kD80Warpgroups)
+    attention_kernel_d80(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o, int T, int H,
+                         float scale_log2, int causal) {
+  constexpr int D = kD80, WG = kD80Warpgroups;
+  constexpr int kRows = kBQ * WG;
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align128(smem_raw);  // WG tiles
+  uint8_t* sK = sQ + WG * kD80Tile;  // two stages
+  uint8_t* sV = sK + 2 * kD80Tile;   // two stages
+
+  const int qb = blockIdx.x * kRows;
+  const long long row_stride = (long long)H * D;
+  const long long base =
+      (long long)blockIdx.z * T * row_stride + (long long)blockIdx.y * D;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  const int q0 = qb + kBQ * wg;
+
+  int n_tiles = (T + kBK - 1) / kBK;
+  if (causal) n_tiles = min(n_tiles, (qb + kRows - 1) / kBK + 1);
+
+  // stage the rows [r0, r0 + n) of src, zeros past T: chunk i at byte 16 i
+  auto stage = [&](uint8_t* dst, const __nv_bfloat16* src, int r0, int n) {
+#pragma unroll
+    for (int i = tid; i < n * kChunks; i += kThreads * WG) {
+      const int r = (i / (8 * kChunks)) * 8 + (i & 7);
+      const int c = (i >> 3) % kChunks;
+      const bool in = r0 + r < T;
+      const __nv_bfloat16* p =
+          src + base + (in ? (long long)(r0 + r) * row_stride + c * 8 : 0);
+      cp_async16(dst + 16 * i, p, in ? 16 : 0);
+    }
+  };
+  stage(sQ, q, qb, kRows);
+  stage(sK, k, 0, kBK);
+  stage(sV, v, 0, kBK);
+  cp_async_commit();
+
+  const int wr = warp * 16 + g;  // this thread's rows: wr and wr + 8
+  const int row_q[2] = {q0 + wr, q0 + wr + 8};
+  float acc[40];
+#pragma unroll
+  for (int i = 0; i < 40; ++i) acc[i] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};
+  const uint64_t dq = plain_desc(sQ + wg * kD80Tile, kD80KLbo, kD80KSbo);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = kt & 1;
+    cp_async_wait<0>();  // tile kt has landed
+    fence_proxy_async();
+    // every thread is done with tile kt - 1, whose stage is refilled now
+    // with tile kt + 1 while tile kt computes
+    __syncthreads();
+    if (kt + 1 < n_tiles) {
+      stage(sK + (buf ^ 1) * kD80Tile, k, (kt + 1) * kBK, kBK);
+      stage(sV + (buf ^ 1) * kD80Tile, v, (kt + 1) * kBK, kBK);
+      cp_async_commit();
+    }
+    const int k0 = kt * kBK;
+    const uint64_t dk = plain_desc(sK + buf * kD80Tile, kD80KLbo, kD80KSbo);
+    const uint64_t dv = plain_desc(sV + buf * kD80Tile, kD80VLbo, kD80VSbo);
+    if (T - k0 <= 16)
+      d80_tile<2>(acc, m_run, l_run, dq, dk, dv, k0, q0, row_q, tg, T,
+                  scale_log2, causal);
+    else if (T - k0 <= 32)
+      d80_tile<4>(acc, m_run, l_run, dq, dk, dv, k0, q0, row_q, tg, T,
+                  scale_log2, causal);
+    else
+      d80_tile<8>(acc, m_run, l_run, dq, dk, dv, k0, q0, row_q, tg, T,
+                  scale_log2, causal);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    float l = l_run[ri];
+    l += __shfl_xor_sync(0xffffffff, l, 1);
+    l += __shfl_xor_sync(0xffffffff, l, 2);
+    inv[ri] = 1.f / l;
+  }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    if (row_q[ri] >= T) continue;
+    __nv_bfloat16* orow = o + base + (long long)row_q[ri] * row_stride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const __nv_bfloat162 val = __floats2bfloat162_rn(
+          acc[4 * n + 2 * ri] * inv[ri], acc[4 * n + 2 * ri + 1] * inv[ri]);
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + tg * 2) = val;
+    }
+  }
+}
+
 // Descriptor self-test (a test oracle; no path of the port calls it): one
 // 64 x 64 x 64 product on wgmma from 64 x 64 bf16 row-major a and b.
 // mode 0: c = a b^T, a and b K-major in shared memory (the S = Q K^T form);
@@ -1238,8 +1507,25 @@ int launch(Kernel<E> kernel, int smem, const void* q, const void* k,
 // Q, two K and two V stages, and the slack to align them to 1024 bytes
 constexpr int kV3Smem = 5 * kTile + 1024;
 
-// devices whose shared-memory attribute the float32 launch remembers
+// devices whose shared-memory attribute a launch remembers
 constexpr int kMaxDevices = 64;
+
+// Above 48 KB a block's shared memory is dynamic only when set so: once per
+// device and kernel (``set`` is the kernel's own record), not on every launch
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem, bool (&set)[kMaxDevices]) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && set[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess && dev < kMaxDevices) set[dev] = true;
+  return err;
+}
+
+// d80: two tiles of Q, two K and two V stages, and the slack to align them
+constexpr int kD80Smem = (kD80Warpgroups + 4) * kD80Tile + 128;
 
 }  // namespace
 
@@ -1278,21 +1564,35 @@ int dropclip_attention_f32(const void* q, const void* k, const void* v, void* o,
   const int smem = D == 16   ? F32Mma<16>::kSmem
                    : D == 32 ? F32Mma<32>::kSmem
                              : kF32WgmmaSmem;
-  // above 48 KB (the wgmma kernel only) a block's shared memory is dynamic
-  // only when set so: once per device, not on every launch
-  if (kernel != nullptr && smem > 48 * 1024) {
-    static bool attr_set[kMaxDevices] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+  // above 48 KB: the wgmma kernel only
+  static bool attr_set[kMaxDevices] = {};
+  if (kernel != nullptr) {
+    const cudaError_t err = allow_smem(kernel, smem, attr_set);
     if (err != cudaSuccess) return (int)err;
-    if (dev >= kMaxDevices || !attr_set[dev]) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return (int)err;
-      if (dev < kMaxDevices) attr_set[dev] = true;
-    }
   }
   return launch(kernel, smem, q, k, v, o, B, T, H, scale_log2, causal, stream);
+}
+
+// d80: bfloat16, D = 80; one block of two warpgroups per (128-row query
+// tile, head, batch)
+int dropclip_attention_d80(const void* q, const void* k, const void* v,
+                           void* o, int B, int T, int H, float scale_log2,
+                           int causal, void* stream) {
+  constexpr int WG = kD80Warpgroups;
+  if (B <= 0 || T <= 0 || H <= 0 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(attention_kernel_d80, kD80Smem, attr_set);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)((T + kBQ * WG - 1) / (kBQ * WG)), (unsigned)H,
+            (unsigned)B);
+  attention_kernel_d80<<<grid, kThreads * WG, kD80Smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      T, H, scale_log2, causal);
+  return (int)cudaGetLastError();
 }
 
 // the descriptor self-test: a, b 64 x 64 bf16, c 64 x 64 float32

@@ -5,12 +5,13 @@ bfloat16 or float32 CUDA tensors laid out as (B, T, H, D) or,
 equivalently, packed (B, T, H*D), and returns a new tensor of the same
 shape; it raises on anything the kernel does not take. ``instance`` picks
 the kernel's instance from the type and the head dim: v3 (``wgmma``) for
-bfloat16 at D = 64, v2 (``mma.sync``) for bfloat16 at D = 16 and 32, and
-f32x3 for float32 (3xTF32 on the tensor cores, float32 accurate:
-``wgmma`` at D = 64, ``mma.sync`` at D = 16 and 32). The three entry
-points that count launches, and their plain versions, are in
-``ops/attention.py``. The source's header note gives the design and the
-bound.
+bfloat16 at D = 64, d80 (``wgmma`` on no-swizzle tiles) for bfloat16 at
+D = 80, v2 (``mma.sync``) for bfloat16 at D = 16 and 32, and f32x3 for
+float32 at D = 16, 32 and 64 (3xTF32 on the tensor cores, float32
+accurate: ``wgmma`` at D = 64, ``mma.sync`` at D = 16 and 32).
+``counters[instance].launches`` counts each instance's launches, beside
+the three entry points' counts (``ops/attention.py``, with the plain
+versions). The source's header note gives the design and the bound.
 """
 
 from __future__ import annotations
@@ -20,24 +21,36 @@ import math
 
 import torch
 
+from . import count_launch
 from .nvcc import library
 
-HEAD_DIMS = (16, 32, 64)
-DTYPES = (torch.bfloat16, torch.float32)
+HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 80), torch.float32: (16, 32, 64)}
+INSTANCES = ("v3", "d80", "v2", "f32x3")
+
+
+class Launches:
+    """One instance's count of launches (``launches``)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+counters = {name: Launches() for name in INSTANCES}
 
 
 def instance(dtype: torch.dtype, d: int) -> str:
-    """The kernel instance that takes (dtype, head dim d): "v3", "v2" or
-    "f32x3". Raises TypeError for a dtype and ValueError for a head dim
-    that no instance takes."""
-    if dtype not in DTYPES:
+    """The kernel instance that takes (dtype, head dim d): "v3", "d80",
+    "v2" or "f32x3". Raises TypeError for a dtype and ValueError for a
+    head dim that no instance of that dtype takes."""
+    if dtype not in HEAD_DIMS:
         raise TypeError(f"dtype {dtype}: the kernel takes bfloat16 or "
                         "float32, the same for q, k, v")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if d not in HEAD_DIMS[dtype]:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS[dtype]} for "
+                         f"{dtype}")
     if dtype == torch.float32:
         return "f32x3"
-    return "v3" if d == 64 else "v2"
+    return {64: "v3", 80: "d80"}.get(d, "v2")
 
 
 def _bind(lib) -> None:
@@ -45,8 +58,9 @@ def _bind(lib) -> None:
     for fn in (lib.dropclip_attention, lib.dropclip_attention_f32):
         fn.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
         fn.restype = i
-    lib.dropclip_attention_v3.argtypes = [p, p, p, p, i, i, i, f, i, p]
-    lib.dropclip_attention_v3.restype = i
+    for fn in (lib.dropclip_attention_v3, lib.dropclip_attention_d80):
+        fn.argtypes = [p, p, p, p, i, i, i, f, i, p]
+        fn.restype = i
     lib.dropclip_wgmma_selftest.argtypes = [p, p, p, i, p]
     lib.dropclip_wgmma_selftest.restype = i
 
@@ -89,15 +103,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if kind == "v3":
-            err = lib.dropclip_attention_v3(*ptrs, b, t, heads, scale_log2,
-                                            int(bool(causal)), stream)
+        if kind in ("v3", "d80"):
+            fn = (lib.dropclip_attention_v3 if kind == "v3"
+                  else lib.dropclip_attention_d80)
+            err = fn(*ptrs, b, t, heads, scale_log2, int(bool(causal)),
+                     stream)
         else:
             fn = (lib.dropclip_attention_f32 if kind == "f32x3"
                   else lib.dropclip_attention)
             err = fn(*ptrs, b, t, heads, d, scale_log2, int(bool(causal)),
                      stream)
     LIB.check(err, f"attention ({kind})")
+    count_launch(counters[kind])
     return out
 
 

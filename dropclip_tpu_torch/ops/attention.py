@@ -19,7 +19,10 @@ teachers do (CLIP's vision tower, DINOv2, DINO v1).
 ``supports`` and ``supports_packed`` are the JAX package's predicates,
 kept so that a shape takes the same route as there. Their budgets are
 the TPU's VMEM limits and bind nothing on the card, whose kernel takes any
-T at head dims 16, 32 and 64, in bfloat16 or float32.
+T at head dims 16, 32 and 64, in bfloat16 or float32, and 80 in bfloat16
+(OpenCLIP ViT-H/14's heads, which ``supports_packed`` sends to K4:
+``group * d`` is not a multiple of 128). ``kernels/attention.counters``
+counts the launches of each instance of the kernel.
 
 The plain versions of K3 and K4 follow the TPU body's order: float32
 logits, ``exp2(s * scale * log2(e) - max)``, the unnormalised

@@ -19,6 +19,10 @@ tower always runs the fused residual stream (``fused_call``, one K7 pass
 per add + LayerNorm), which is bit-identical to the unfused form that the
 JAX package runs unless ``DROPCLIP_FUSED_ADD_LN`` is set.
 
+The blocks' MLP activation is the configuration's ``activation``:
+``quick_gelu`` for OpenAI's towers, ``gelu`` (exact, erf) for OpenCLIP's
+ViT-H/14, in both towers.
+
 Text attention and the RN's attention pool are plain matmul + softmax
 (``dot_product_attention``), matching ``jax.nn.dot_product_attention``:
 logits accumulate in float32, softmax in float32, probabilities cast to
@@ -29,7 +33,7 @@ RN's convs and pools are XLA ops there; here they are ``F.conv2d`` and
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +48,11 @@ from ..ops.resize import bicubic_resize
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 x) — OpenAI CLIP's activation."""
     return x * torch.sigmoid(1.702 * x)
+
+
+# the blocks' MLP activation by configuration name: OpenAI's quick-GELU,
+# and the exact (erf) GELU of OpenCLIP's towers (``nn.GELU``)
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
 
 
 class LayerNormF32(nn.Module):
@@ -110,17 +119,19 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int, use_kernels: bool = False):
+    def __init__(self, width: int, heads: int, use_kernels: bool = False,
+                 activation: str = "quick_gelu"):
         super().__init__()
         self.ln_1 = LayerNormF32(width)
         self.attn = MultiHeadAttention(width, heads, use_kernels)
         self.ln_2 = LayerNormF32(width)
         self.c_fc = nn.Linear(width, 4 * width)
         self.c_proj = nn.Linear(4 * width, width)
+        self.act = ACTIVATIONS[activation]
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), causal=causal)
-        return x + self.c_proj(quick_gelu(self.c_fc(self.ln_2(x))))
+        return x + self.c_proj(self.act(self.c_fc(self.ln_2(x))))
 
     def fused_call(self, res: torch.Tensor, delta: Optional[torch.Tensor],
                    causal: bool = False):
@@ -132,7 +143,7 @@ class ResidualAttentionBlock(nn.Module):
         else:
             s, y = self.ln_1(res, delta)
         s, y = self.ln_2(s, self.attn(y, causal=causal))
-        return s, self.c_proj(quick_gelu(self.c_fc(y)))
+        return s, self.c_proj(self.act(self.c_fc(y)))
 
     def forward_v(self, x: torch.Tensor) -> torch.Tensor:
         """Value path only; no residual, no MLP."""
@@ -176,7 +187,8 @@ class CLIPVisionTransformer(nn.Module):
 
     def __init__(self, width: int, layers: int, heads: int, patch_size: int,
                  embed_dim: int, image_resolution: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 activation: str = "quick_gelu"):
         super().__init__()
         self.width, self.patch_size = width, patch_size
         self.image_resolution = image_resolution
@@ -189,7 +201,8 @@ class CLIPVisionTransformer(nn.Module):
                                bias=False)
         self.ln_pre = LayerNormF32(width)
         self.blocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, use_kernels=True)
+            ResidualAttentionBlock(width, heads, use_kernels=True,
+                                   activation=activation)
             for _ in range(layers))
         self.ln_post = LayerNormF32(width)
         self.proj = nn.Parameter(torch.zeros(width, embed_dim))
@@ -429,14 +442,16 @@ class CLIPTextTransformer(nn.Module):
 
     def __init__(self, width: int, layers: int, heads: int, vocab_size: int,
                  context_length: int, embed_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 activation: str = "quick_gelu"):
         super().__init__()
         self.dtype = dtype
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(
             torch.empty(context_length, width))
         self.blocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads) for _ in range(layers))
+            ResidualAttentionBlock(width, heads, activation=activation)
+            for _ in range(layers))
         self.ln_final = LayerNormF32(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 
@@ -476,17 +491,24 @@ class CLIP(nn.Module):
     ``get_patch_encodings`` (MaskCLIP patch features), ``encode_text``.
     Fields are those of ``CLIP_CONFIGS``: an int ``vision_layers`` builds
     the ViT tower, a tuple of four stage depths the RN tower (whose
-    ``vision_patch_size`` is its output stride, 32)."""
+    ``vision_patch_size`` is its output stride, 32); ``vision_heads``
+    defaults to heads of 64 (OpenAI's rule), ``activation`` (a key of
+    ``ACTIVATIONS``) is both towers' MLP activation, and ``img_resize``
+    the (H, W) crop canvas the ingest teacher takes (the recipe's
+    336 x 448)."""
 
     def __init__(self, embed_dim: int, image_resolution: int,
                  vision_layers, vision_width: int, vision_patch_size: int,
                  context_length: int, vocab_size: int,
                  transformer_width: int, transformer_heads: int,
                  transformer_layers: int, vision_heads: Optional[int] = None,
+                 activation: str = "quick_gelu",
+                 img_resize: Tuple[int, int] = (336, 448),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
         self.image_resolution = image_resolution
+        self.img_resize = tuple(img_resize)
         self.vision_patch_size = vision_patch_size
         self.context_length = context_length
         self.dtype = dtype
@@ -501,11 +523,13 @@ class CLIP(nn.Module):
                 width=vision_width, layers=vision_layers,
                 heads=vision_heads or vision_width // 64,
                 patch_size=vision_patch_size, embed_dim=embed_dim,
-                image_resolution=image_resolution, dtype=dtype)
+                image_resolution=image_resolution, dtype=dtype,
+                activation=activation)
         self.text = CLIPTextTransformer(
             width=transformer_width, layers=transformer_layers,
             heads=transformer_heads, vocab_size=vocab_size,
-            context_length=context_length, embed_dim=embed_dim, dtype=dtype)
+            context_length=context_length, embed_dim=embed_dim, dtype=dtype,
+            activation=activation)
         self.logit_scale = nn.Parameter(torch.tensor(2.6592))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -530,65 +554,87 @@ class CLIP(nn.Module):
 
 
 # Canonical CLIP configs (reference clip.py:_MODELS; the ingest teacher is
-# ViT-L/14@336px). For the RN entries vision_patch_size is the output
-# stride.
+# ViT-L/14@336px) and OpenCLIP's ViT-H/14. For the RN entries
+# vision_patch_size is the output stride.
 CLIP_CONFIGS = {
     "ViT-B/32": dict(embed_dim=512, image_resolution=224, vision_layers=12,
                      vision_width=768, vision_patch_size=32,
                      context_length=77, vocab_size=49408,
                      transformer_width=512, transformer_heads=8,
-                     transformer_layers=12),
+                     transformer_layers=12, activation="quick_gelu"),
     "ViT-B/16": dict(embed_dim=512, image_resolution=224, vision_layers=12,
                      vision_width=768, vision_patch_size=16,
                      context_length=77, vocab_size=49408,
                      transformer_width=512, transformer_heads=8,
-                     transformer_layers=12),
+                     transformer_layers=12, activation="quick_gelu"),
     "ViT-L/14": dict(embed_dim=768, image_resolution=224, vision_layers=24,
                      vision_width=1024, vision_patch_size=14,
                      context_length=77, vocab_size=49408,
                      transformer_width=768, transformer_heads=12,
-                     transformer_layers=12),
+                     transformer_layers=12, activation="quick_gelu"),
     "ViT-L/14@336px": dict(embed_dim=768, image_resolution=336,
                            vision_layers=24, vision_width=1024,
                            vision_patch_size=14, context_length=77,
                            vocab_size=49408, transformer_width=768,
-                           transformer_heads=12, transformer_layers=12),
+                           transformer_heads=12, transformer_layers=12,
+                           activation="quick_gelu"),
     "RN50": dict(embed_dim=1024, image_resolution=224,
                  vision_layers=(3, 4, 6, 3), vision_width=64,
                  vision_patch_size=32, context_length=77, vocab_size=49408,
                  transformer_width=512, transformer_heads=8,
-                 transformer_layers=12),
+                 transformer_layers=12, activation="quick_gelu"),
     "RN101": dict(embed_dim=512, image_resolution=224,
                   vision_layers=(3, 4, 23, 3), vision_width=64,
                   vision_patch_size=32, context_length=77, vocab_size=49408,
                   transformer_width=512, transformer_heads=8,
-                  transformer_layers=12),
+                  transformer_layers=12, activation="quick_gelu"),
     "RN50x4": dict(embed_dim=640, image_resolution=288,
                    vision_layers=(4, 6, 10, 6), vision_width=80,
                    vision_patch_size=32, context_length=77,
                    vocab_size=49408, transformer_width=640,
-                   transformer_heads=10, transformer_layers=12),
+                   transformer_heads=10, transformer_layers=12,
+                   activation="quick_gelu"),
     "RN50x16": dict(embed_dim=768, image_resolution=384,
                     vision_layers=(6, 8, 18, 8), vision_width=96,
                     vision_patch_size=32, context_length=77,
                     vocab_size=49408, transformer_width=768,
-                    transformer_heads=12, transformer_layers=12),
+                    transformer_heads=12, transformer_layers=12,
+                    activation="quick_gelu"),
     "RN50x64": dict(embed_dim=1024, image_resolution=448,
                     vision_layers=(3, 15, 36, 10), vision_width=128,
                     vision_patch_size=32, context_length=77,
                     vocab_size=49408, transformer_width=1024,
-                    transformer_heads=16, transformer_layers=12),
+                    transformer_heads=16, transformer_layers=12,
+                    activation="quick_gelu"),
+    # OpenCLIP ViT-H/14 (laion2b_s32b_b79k; open_clip's
+    # model_configs/ViT-H-14.json): 16 vision heads of 80 (head_width 80,
+    # so not OpenAI's heads of 64), exact GELU (nn.GELU) in both towers;
+    # its crop canvas is its 224 resolution on the recipe's 3:4 in whole
+    # 14-pixel patches (16 x 21 + 1 = 337 tokens)
+    "ViT-H-14": dict(embed_dim=1024, image_resolution=224, vision_layers=32,
+                     vision_width=1280, vision_patch_size=14,
+                     vision_heads=16, context_length=77, vocab_size=49408,
+                     transformer_width=1024, transformer_heads=16,
+                     transformer_layers=24, activation="gelu",
+                     img_resize=(224, 294)),
     # random-weights smoke configs for tests (not real teachers)
     "tiny-test-rn": dict(embed_dim=16, image_resolution=64,
                          vision_layers=(1, 1, 1, 1), vision_width=16,
                          vision_patch_size=32, context_length=77,
                          vocab_size=49408, transformer_width=32,
-                         transformer_heads=4, transformer_layers=2),
+                         transformer_heads=4, transformer_layers=2,
+                         activation="quick_gelu"),
+    "tiny-test-h14": dict(embed_dim=16, image_resolution=28,
+                          vision_layers=2, vision_width=320,
+                          vision_patch_size=14, vision_heads=4,
+                          context_length=77, vocab_size=49408,
+                          transformer_width=32, transformer_heads=4,
+                          transformer_layers=2, activation="gelu"),
     "tiny-test": dict(embed_dim=16, image_resolution=32, vision_layers=2,
                       vision_width=64, vision_patch_size=16,
                       context_length=77, vocab_size=49408,
                       transformer_width=32, transformer_heads=4,
-                      transformer_layers=2),
+                      transformer_layers=2, activation="quick_gelu"),
 }
 
 
@@ -623,6 +669,6 @@ def build_clip_text(name: str, dtype: torch.dtype = torch.float32,
         width=c["transformer_width"], layers=c["transformer_layers"],
         heads=c["transformer_heads"], vocab_size=c["vocab_size"],
         context_length=c["context_length"], embed_dim=c["embed_dim"],
-        dtype=dtype)
+        dtype=dtype, activation=c["activation"])
     model.reset_parameters(generator)
     return model.cast_().eval()

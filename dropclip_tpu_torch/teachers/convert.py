@@ -9,6 +9,11 @@ Port of ``dropclip_tpu/teachers/convert.py``. Two public weight layouts:
 - **HuggingFace** ``CLIPModel`` state dicts: split q/k/v projections,
   ``vision_model.encoder.layers.*`` naming.
 
+OpenCLIP's files of the towers with separate ``transformer.resblocks``
+(ViT-H/14 among them) have the OpenAI layout, in float32, sometimes under a
+``state_dict`` key and with the ``module.`` prefix of a data-parallel
+wrapper; ``load_params`` takes both off.
+
 Both map straight to ``CLIP.state_dict()``'s keys (those
 ``convert.clip_state_dict`` gives for a flax tree) in float32: torch
 ``Linear`` weights stay (out, in), LayerNorm ``weight`` becomes ``scale``,
@@ -174,11 +179,15 @@ def from_hf_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def load_params(path: str) -> Dict[str, torch.Tensor]:
-    """A torch checkpoint file (.pt/.pth, either layout) ->
-    ``CLIP.state_dict()``. ``torch.load`` hands an OpenAI JIT archive to
-    ``torch.jit.load``, whose ``state_dict()`` is the plain layout."""
+    """A torch checkpoint file (.pt/.pth/.bin, OpenAI, OpenCLIP or HF
+    layout) -> ``CLIP.state_dict()``. ``torch.load`` hands an OpenAI JIT
+    archive to ``torch.jit.load``, whose ``state_dict()`` is the plain
+    layout."""
     obj = torch.load(path, map_location="cpu", weights_only=False)
     sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    sd = sd.get("state_dict", sd)
+    if all(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
     if any(k.startswith("vision_model.") for k in sd):
         return from_hf_state_dict(sd)
     return from_openai_state_dict(sd)

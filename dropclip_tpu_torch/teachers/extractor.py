@@ -7,7 +7,8 @@ images (``extract``, class token or MaskCLIP patches), of text prompts
 every present (view, object) pair with a visual prompt
 (``extract_obj_prior``: the packed present-pair path, or with
 ``DROPCLIP_PACKED_PROMPTS=0`` the per-view path, which runs every view's
-objects in chunks of 8 views). The model is a ``teachers.clip.CLIP``
+objects in chunks of 8 views; each chunk's ViT forward is the span
+``teacher.tower``). The model is a ``teachers.clip.CLIP``
 already on its device; inputs move there. ``on_device`` gives a replica
 on another device (multi-card ingest).
 """
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .prompting import CLIP_MEAN, CLIP_STD, build_prompts, normalize
+from ..core.spans import span
 from ..ops.resize import resize_image
 
 CHUNK = 96  # present pairs per ViT forward (the measured-good JAX batch)
@@ -103,8 +105,9 @@ class ClipExtractor:
             crop_expansion_ratio=self.crop_expansion_ratio,
             blur_kernel=self.blur_kernel, out_hw=self.img_resize)
         c, l = prompts.shape[:2]
-        emb = self.model.encode_image(prompts.reshape(c * l,
-                                                      *prompts.shape[2:]))
+        with span("teacher.tower"):
+            emb = self.model.encode_image(prompts.reshape(
+                c * l, *prompts.shape[2:]))
         self.chunks += 1
         return emb.reshape(c, l, -1).mean(dim=1)
 
@@ -119,8 +122,9 @@ class ClipExtractor:
             blur_kernel=self.blur_kernel, out_hw=self.img_resize)
             for image, seg in zip(images, segs)])
         vc, k, l = prompts.shape[:3]
-        emb = self.model.encode_image(prompts.reshape(vc * k * l,
-                                                      *prompts.shape[3:]))
+        with span("teacher.tower"):
+            emb = self.model.encode_image(prompts.reshape(
+                vc * k * l, *prompts.shape[3:]))
         self.chunks += 1
         return emb.reshape(vc, k, l, -1).mean(dim=2)
 

@@ -17,9 +17,10 @@ pixel, averages per-object class-token features over the views where the
 object is present, voxel-pools the cloud and writes the REGRAD schema
 (``scene_io.write_regrad_scene``).
 
-Usage (``--clip-checkpoint`` a CLIP checkpoint file, OpenAI or
+Usage (``--clip-checkpoint`` a CLIP checkpoint file, OpenAI, OpenCLIP or
 HuggingFace layout; without it the teacher's weights are drawn from a
-seed; ``--format npz`` writes numpy archives of the same schema):
+seed; ``--clip-model ViT-H-14`` takes OpenCLIP's ViT-H/14 at its 224 x 294
+crop canvas; ``--format npz`` writes numpy archives of the same schema):
 
   python -m dropclip_tpu_torch.tools.preprocess_data -ds Blender \\
       -r RAW_ROOT -c OUT_DIR [--split train --start 0 --end 100]
@@ -256,8 +257,9 @@ def process_scene(images: np.ndarray, depths: np.ndarray, segs: np.ndarray,
 def build_extractor(args, device=None, seed: int = 0) -> ClipExtractor:
     """The ingest teacher: ``args.clip_model`` in bf16 with the obj-prior
     prompt settings of ``args``; weights from ``args.clip_checkpoint`` (a
-    CLIP checkpoint file in either public layout), or drawn from ``seed``
-    when it is None or "random"."""
+    CLIP checkpoint file in any public layout: OpenAI, OpenCLIP, HF), or
+    drawn from ``seed`` when it is None or "random"; crops at the
+    teacher's canvas (its configuration's ``img_resize``)."""
     from ..teachers.convert import build_clip_from
 
     model = build_clip_from(args.clip_model, args.clip_checkpoint,
@@ -267,7 +269,8 @@ def build_extractor(args, device=None, seed: int = 0) -> ClipExtractor:
                          visual_prompt=args.visual_prompt.split(","),
                          crop_num_levels=args.crop_num_levels,
                          crop_expansion_ratio=args.crop_expansion_ratio,
-                         img_resize=(336, 448), batch_size=args.batch_size)
+                         img_resize=model.img_resize,
+                         batch_size=args.batch_size)
 
 
 def _intrinsic_matrix(ci: Dict) -> np.ndarray:
@@ -606,7 +609,9 @@ def main(argv=None) -> None:
                    help="processed file format (npz where h5py is absent)")
     p.add_argument("--voxel-size", type=float, default=0.02)
     p.add_argument("--batch-size", type=int, default=32)
-    p.add_argument("--clip-model", default="ViT-L/14@336px")
+    p.add_argument("--clip-model", default="ViT-L/14@336px",
+                   help="a name of teachers.clip.CLIP_CONFIGS, e.g. "
+                        "ViT-H-14 (OpenCLIP)")
     p.add_argument("--clip-checkpoint", default=None)
     p.add_argument("--visual-prompt", default="crop-mask")
     p.add_argument("--crop-num-levels", type=int, default=1)

@@ -124,11 +124,13 @@ def test_kernel_binding_checks_before_any_build(dtype, error):
     (torch.float32, 32, "f32x3"), (torch.float32, 16, "f32x3"),
     (torch.float16, 64, TypeError), (torch.float64, 32, TypeError),
     (torch.bfloat16, 48, ValueError), (torch.bfloat16, 128, ValueError),
-    (torch.float32, 8, ValueError)])
+    (torch.float32, 8, ValueError), (torch.bfloat16, 80, "d80"),
+    (torch.float32, 80, ValueError)])
 def test_kernel_instance_by_dtype_and_head_dim(dtype, d, want):
-    """bf16 at D = 64 runs v3 (wgmma), bf16 at D = 16 and 32 v2
-    (mma.sync), float32 at every head dim the 3xTF32 instance (wgmma at
-    D = 64, mma.sync at 16 and 32); anything else raises."""
+    """bf16 at D = 64 runs v3 (wgmma), bf16 at D = 80 d80 (wgmma on
+    no-swizzle tiles), bf16 at D = 16 and 32 v2 (mma.sync), float32 at D =
+    16, 32 and 64 the 3xTF32 instance (wgmma at D = 64, mma.sync at 16 and
+    32); anything else raises."""
     from dropclip_tpu_torch.kernels.attention import instance
 
     if isinstance(want, str):

@@ -465,7 +465,84 @@ def test_v3_keys_past_t_do_not_leak(cuda, t, causal):
     _assert_attention_close(got, att.flash_attention_plain(q, k, v, causal))
 
 
+@pytest.mark.parametrize("b,t,causal", [(96, 337, False), (2, 1, False),
+                                        (2, 97, False), (1, 769, False),
+                                        (3, 65, True), (2, 337, True)])
+def test_d80_matches_plain(cuda, b, t, causal):
+    """The bf16 instance at D = 80 (OpenCLIP ViT-H/14's 16 heads of 80) at
+    the ingest's (96, 337) and at odd T, through K4 (the route of its
+    heads) and K3 non-causal, K5 causal: each within the bf16 limit of its
+    plain version, K3 and K4 the same bits, one d80 launch each."""
+    from dropclip_tpu_torch.kernels.attention import counters, instance
+
+    assert instance(torch.bfloat16, 80) == "d80"
+    h, d = 16, 80
+    q, k, v = _qkv((b, t, h, d), seed=t + causal)
+    n = counters["d80"].launches
+    if causal:
+        got = att.flash_attention_padded(q, k, v, True)
+        torch.cuda.synchronize()
+        _assert_attention_close(got, att.flash_attention_plain(q, k, v,
+                                                               True))
+        assert counters["d80"].launches == n + 1
+        return
+    got4 = att.oneshot_attention(q, k, v)
+    packed = [x.reshape(b, t, h * d) for x in (q, k, v)]
+    got3 = att.oneshot_attention_packed(*packed, h)
+    torch.cuda.synchronize()
+    assert counters["d80"].launches == n + 2
+    _assert_attention_close(got4, att.oneshot_attention_plain(q, k, v))
+    assert torch.equal(got3.reshape(b, t, h, d), got4)
+
+
+@pytest.mark.parametrize("t,causal", [(1, False), (65, True), (337, False)])
+def test_d80_keys_past_t_do_not_leak(cuda, t, causal):
+    """The leak test on d80: Inf and NaN right after the last key never
+    reach the output."""
+    b, h, d = 1, 2, 80
+    q, k, v = _qkv((b, t + 64, h, d), seed=t + 2)
+    k[:, t:] = float("inf")
+    v[:, t:] = float("nan")
+    q, k, v = (x[:, :t] for x in (q, k, v))
+    got = att.flash_attention_padded(q, k, v, causal)
+    assert torch.isfinite(got.float()).all()
+    _assert_attention_close(got, att.flash_attention_plain(q, k, v, causal))
+
+
+def test_vit_h14_blocks_on_the_card(cuda):
+    """ViT-H/14 at its published widths (1280, 16 heads of 80, exact
+    GELU), cut to two blocks, in bf16 on the card (K4 at d80, K6, K7)
+    against the same tower on the CPU in float32: class-token and patch
+    features within 2% of each row's norm, the bf16 rounding; the text
+    tower too (1024, 16 heads of 64, two blocks)."""
+    from dropclip_tpu_torch.kernels.attention import counters
+    from dropclip_tpu_torch.teachers.clip import build_clip
+
+    kw = dict(vision_layers=2, transformer_layers=2)
+    card = build_clip("ViT-H-14", dtype=torch.bfloat16, device="cuda",
+                      generator=torch.Generator().manual_seed(0), **kw)
+    cpu = build_clip("ViT-H-14", device="cpu",
+                     generator=torch.Generator().manual_seed(0), **kw)
+    px = torch.randn((4, 224, 294, 3), generator=torch.Generator()
+                     .manual_seed(1))
+    tok = torch.randint(1, 49000, (3, 77), generator=torch.Generator()
+                        .manual_seed(2))
+    tok[:, 9] = 49407
+    n = counters["d80"].launches
+    with torch.no_grad():
+        for method, x in (("encode_image", px), ("get_patch_encodings", px),
+                          ("encode_text", tok)):
+            got = getattr(card, method)(x.to(cuda)).float().cpu()
+            ref = getattr(cpu, method)(x)
+            gap = (got - ref).norm(dim=-1) / ref.norm(dim=-1)
+            assert float(gap.max()) < 0.02, (method, float(gap.max()))
+    # two blocks in each vision forward; the patch path's last block runs
+    # its value path alone
+    assert counters["d80"].launches == n + 3
+
+
 @pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 80, "attention_kernel_d80"),
     (torch.bfloat16, 64, "attention_kernel_v3"),
     (torch.bfloat16, 16, "attention_kernel<16>"),
     (torch.bfloat16, 32, "attention_kernel<32>"),
